@@ -20,7 +20,21 @@ checks it, in phases that each print one JSON line:
 5. full size: the 10-sample 1 Mbp 8x bank (~77.6M k-mer occurrences in one
    step) through the CLI, with the wall of each stage, peak device memory
    and the kernels' launch counts, and its matrices against the host
-   stages byte for byte.
+   stages byte for byte;
+6. merge kernels: K4 (one and two key words, count payload) and K3 (one
+   word, no payload) against their plain PyTorch version, bit for bit, on
+   the cases of tests/test_routed_merge.py and on the phase-A runs of the
+   phase-8 bank, with the kernel and plain times there;
+7. engine parity: the phase-4 bank through the streaming engine (about
+   ten chunks at a low --max-memory) at k = 31 and k = 21, and with
+   --hist --soft-min 0.5, against the host stages byte for byte,
+   histograms included;
+8. engine at full size: the 10-sample 1 Mbp 30x bank (~291M windows)
+   through the CLI at the default --max-memory, which streams it from the
+   banks, with the wall of each phase, chunk/run/fold counts, peak device
+   memory and the launch counts; its matrices against the one-step path
+   (--max-memory 65536) and against an engine run whose small table
+   budget forces two or more folds through K4.
 
 Then one JSON line of kernel results and, last, the device line. Any
 failure raises and exits non-zero; without CUDA it exits non-zero before
@@ -36,6 +50,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -45,6 +60,7 @@ WORK = os.path.join(ROOT, ".smoke_work")
 OPTS = ["--hard-min", "2", "--soft-min", "2", "--share-min", "2",
         "--recurrence-min", "1"]
 TPU_TILE = 8192           # the Pallas kernels' tile (pallas_segscan.TILE)
+SMALL_MEM = 75            # MB: about ten engine chunks of the phase-4 bank
 
 
 def emit(obj) -> None:
@@ -144,11 +160,13 @@ def check_kernels(inputs, rmin, save_if, cmax, S):
 # Runs
 # ---------------------------------------------------------------------------
 
-def host_run(fof, run_dir, k, repart_from=None):
+def host_run(fof, run_dir, k, repart_from=None, max_memory=8192,
+             hist=False, soft_min="2"):
     """The JAX package's host stages one by one (numpy; no jax):
-    repartition (host tally), per-sample count, soft-min, per-partition
-    merge. The config stage is the port's twin, whose only difference is
-    a build_infos.txt written without asking jax for its version."""
+    repartition (host tally), per-sample count (with histograms under
+    ``hist``), soft-min, per-partition merge. The config stage is the
+    port's twin, whose only difference is a build_infos.txt written
+    without asking jax for its version."""
     from kmtricks_tpu.runtime.pipeline import (
         PipelineOptions, resolve_soft_min, stage_count, stage_merge,
         stage_repart)
@@ -156,9 +174,10 @@ def host_run(fof, run_dir, k, repart_from=None):
 
     os.environ["KMTRICKS_REPART_SAMPLER"] = "host"
     opts = PipelineOptions(fof=fof, run_dir=run_dir, kmer_size=k,
-                           hard_min=2, soft_min="2", share_min=2,
+                           hard_min=2, soft_min=soft_min, share_min=2,
                            recurrence_min=1, backend="host",
-                           repart_from=repart_from)
+                           repart_from=repart_from, max_memory_mb=max_memory,
+                           hist=hist)
     kmdir, config = stage_config(opts)
     rep = stage_repart(kmdir, config, opts)
     for s in range(len(kmdir.fof)):
@@ -169,19 +188,20 @@ def host_run(fof, run_dir, k, repart_from=None):
     return config.nb_partitions
 
 
-def port_run(fof, run_dir, k, repart_from):
+def port_run(fof, run_dir, k, repart_from, extra=()):
     """The port's main path through its command line."""
     from kmtricks_tpu_torch.cli import main
 
     main(["pipeline", "--file", fof, "--run-dir", run_dir, "--kmer-size",
-          str(k), "--repart-from", repart_from, "-v", "warning"] + OPTS)
+          str(k), "--repart-from", repart_from, "-v", "warning"] + OPTS
+         + list(extra))
 
 
-def compare_run_dirs(a, b):
-    """Every matrices/ and merge_infos/ file of run dir ``a`` must exist in
-    ``b`` with the same bytes; returns (files, bytes) compared."""
+def compare_run_dirs(a, b, subs=("matrices", "merge_infos")):
+    """Every file under ``subs`` of run dir ``a`` must exist in ``b`` with
+    the same bytes; returns (files, bytes) compared."""
     nfiles = nbytes = 0
-    for sub in ("matrices", "merge_infos"):
+    for sub in subs:
         names = sorted(os.listdir(os.path.join(a, sub)))
         if names != sorted(os.listdir(os.path.join(b, sub))) or not names:
             raise AssertionError(f"{sub}: file lists differ")
@@ -280,12 +300,95 @@ def staged_step(fof, run_dir, k, dev):
     return walls, info, seg_in
 
 
+def sorted_runs(rng, lens, nw, payload, span, dev):
+    """Ascending runs of ``nw`` int64 words drawn from a small pool (equal
+    keys within and across runs when ``span`` is small), with a payload
+    numbering the entries, as CUDA tensors."""
+    pool = [rng.integers(0, span, max(8, sum(lens) // 3), dtype=np.int64)
+            for _ in range(nw)]
+    runs, base = [], 0
+    for n in lens:
+        pick = rng.integers(0, len(pool[0]), n)
+        cols = [p[pick] for p in pool]
+        order = np.lexsort(cols[::-1])
+        words = tuple(torch.from_numpy(np.ascontiguousarray(c[order])).to(dev)
+                      for c in cols)
+        pay = (torch.arange(base, base + n, dtype=torch.int64, device=dev)
+               if payload else None)
+        runs.append((words, pay))
+        base += n
+    return runs
+
+
+def merge_cases(dev):
+    """(runs, kernel) on the grids of tests/test_routed_merge.py: 2 to 8
+    runs, lengths that are and are not powers of two, runs shorter than
+    the TPU tile, empty runs, and many ties across runs."""
+    rng = np.random.default_rng(0)
+    t = TPU_TILE
+    grids = ([t, t], [t] * 4, [t] * 8, [t + 1000, 2 * t - 512],
+             [4 * t - 1, 3 * t + 5, t], [5000, 0, 777],
+             [1, 2, 0, 300, t - 1, 17], [300] * 7, [0, t])
+    for lens in grids:
+        for span in (1 << 62, 64):
+            for nw, payload in ((1, True), (2, True), (1, False)):
+                yield (sorted_runs(rng, lens, nw, payload, span, dev),
+                       "K4" if payload else "K3")
+
+
+def merge_err(runs, MR) -> int:
+    """The merge kernel against its plain version on the same runs; 0 or
+    raises."""
+    def flat(res):
+        words, payload = res
+        return tuple(words) + (() if payload is None else (payload,))
+
+    got = flat(MR.merge_sorted_runs_cuda(runs))
+    exp = flat(MR.merge_sorted_runs_torch(runs))
+    torch.cuda.synchronize()
+    if len(got) != len(exp):
+        raise AssertionError("merge kernel output has the wrong arity")
+    return max_err(got, exp)
+
+
+def phase_a_runs(fof, run_dir, k, dev):
+    """The sorted pair runs that phase A of the engine merges for ``fof``
+    at the default --max-memory (no fold: one run per chunk), made with
+    the engine's own chunk source and chunk step."""
+    from kmtricks_tpu.runtime.pipeline import PipelineOptions
+    from kmtricks_tpu_torch.parallel.pipeline import build_chunk_pairs_step
+    from kmtricks_tpu_torch.runtime.pipeline import (
+        BYTES_PER_WINDOW, _repart_on_host, stage_config)
+    from kmtricks_tpu_torch.runtime.stream_engine import _chunk_source
+
+    opts = PipelineOptions(fof=fof, run_dir=run_dir, kmer_size=k)
+    kmdir, config = stage_config(opts)
+    rep = _repart_on_host(kmdir, config, opts)
+    gen, _rows = _chunk_source(
+        kmdir, opts, k, int(opts.max_memory_mb * 1e6 / BYTES_PER_WINDOW),
+        None, None, None, True)
+    step = build_chunk_pairs_step(k=k, m=config.minim_size,
+                                  nsamp=len(kmdir.fof),
+                                  nb_parts=config.nb_partitions)
+    table = torch.from_numpy(rep.table.astype(np.int32)).to(dev)
+    return [step(*(torch.from_numpy(a).to(dev) for a in chunk), table)
+            for chunk in gen]
+
+
+def reset(*counters) -> None:
+    for c in counters:
+        for key in c:
+            c[key] = 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this test needs a GPU")
     sys.path.insert(0, ROOT)
     from kmtricks_tpu_torch import _build
+    from kmtricks_tpu_torch.ops import merge_runs as MR
     from kmtricks_tpu_torch.ops import segscan as S
+    from kmtricks_tpu_torch.runtime import stream_engine as SE
     from scripts.gen_synth_bank import gen_bank
 
     # 1. probe
@@ -301,10 +404,14 @@ def main() -> int:
           "gpu": smi, "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count()})
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    _build.segscan_lib()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        for f in [ex.submit(_build.segscan_lib),
+                  ex.submit(_build.merge_runs_lib)]:
+            f.result()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "sources": ["csrc/segscan.cu", "csrc/merge_runs.cu"]})
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -389,6 +496,131 @@ def main() -> int:
               "files_identical": files, "bytes": nbytes,
               "partitions_host": nparts,
               "peak_device_bytes": peak, "launches": launches, "gpu": smi})
+        torch.cuda.empty_cache()
+
+        # 6. merge kernels against their plain version, then at the
+        # phase-A shape of the phase-8 bank
+        t0 = time.perf_counter()
+        fof_e2e = gen_bank(os.path.join(WORK, "bank_e2e"), nsamp=10,
+                           genome=1_000_000, coverage=30, read_len=1024)
+        e2e_gen_s = time.perf_counter() - t0
+        merrs = {"K3": 0, "K4": 0}
+        ncases = 0
+        for runs, kern in merge_cases(dev):
+            merrs[kern] = max(merrs[kern], merge_err(runs, MR))
+            ncases += 1
+        runs4 = phase_a_runs(fof_e2e, os.path.join(WORK, "runs_e2e"), 31,
+                             dev)
+        runs3 = [((w[0],), None) for w, _c in runs4]
+        for runs, kern in ((runs4, "K4"), (runs3, "K3")):
+            merrs[kern] = max(merrs[kern], merge_err(runs, MR))
+        ncases += 2
+        mtimes = {
+            "K4": cuda_ms(lambda: MR.merge_sorted_runs_cuda(runs4)),
+            "K4_plain": cuda_ms(lambda: MR.merge_sorted_runs_torch(runs4)),
+            "K3": cuda_ms(lambda: MR.merge_sorted_runs_cuda(runs3)),
+            "K3_plain": cuda_ms(lambda: MR.merge_sorted_runs_torch(runs3)),
+        }
+        emit({"phase": "merge_kernels", "cases": ncases,
+              "phase_a_runs": [int(c.shape[0]) for _w, c in runs4],
+              "phase_a_key_words": len(runs4[0][0]),
+              "max_abs_err": merrs, "ms_median_of_5": mtimes, "gpu": smi})
+        del runs, runs3, runs4
+        torch.cuda.empty_cache()
+
+        # 7. engine parity on the phase-4 bank, about ten chunks
+        small_mem = ["--max-memory", str(SMALL_MEM)]
+        for k, hist in ((31, False), (21, False), (31, True)):
+            tag = f"k{k}{'_hist' if hist else ''}"
+            host_rd = os.path.join(WORK, f"host_engine_{tag}")
+            t0 = time.perf_counter()
+            host_run(fof_small, host_rd, k, max_memory=SMALL_MEM, hist=hist,
+                     soft_min="0.5" if hist else "2")
+            t1 = time.perf_counter()
+            port_rd = os.path.join(WORK, f"port_engine_{tag}")
+            port_run(fof_small, port_rd, k, host_rd, small_mem + (
+                ["--hist", "--soft-min", "0.5"] if hist else []))
+            t2 = time.perf_counter()
+            stats = dict(SE.last_run)
+            if stats.get("chunks", 0) < 5:
+                raise AssertionError(f"engine took {stats} chunks")
+            files, nbytes = compare_run_dirs(
+                host_rd, port_rd, ("matrices", "merge_infos")
+                + (("histograms",) if hist else ()))
+            emit({"phase": "engine_parity", "k": k, "hist_soft_min_0.5": hist,
+                  "files_identical": files, "bytes": nbytes,
+                  "chunks": stats["chunks"], "runs": stats["runs"],
+                  "host_s": t1 - t0, "port_s": t2 - t1})
+
+        # 8. the engine at full size through the CLI, counters reset
+        # just before
+        from kmtricks_tpu.runtime.pipeline import PipelineOptions
+        from kmtricks_tpu_torch.cli import main as main_cli
+        from kmtricks_tpu_torch.runtime.pipeline import (
+            BYTES_PER_WINDOW, run_pipeline)
+
+        eng_rd = os.path.join(WORK, "engine_e2e")
+        reset(S.LAUNCHES, MR.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        main_cli(["pipeline", "--file", fof_e2e, "--run-dir", eng_rd,
+                  "--kmer-size", "31", "-v", "warning"] + OPTS)
+        torch.cuda.synchronize()
+        eng_s = time.perf_counter() - t0
+        eng_launches = {**S.LAUNCHES, **MR.LAUNCHES}
+        eng_peak = torch.cuda.max_memory_allocated()
+        eng = dict(SE.last_run)
+        if not eng_launches["K4"] > 0:
+            raise AssertionError(f"engine skipped the merge: {eng_launches}")
+        nparts = len(os.listdir(os.path.join(eng_rd, "merge_infos")))
+        # the one-step path on the same bank (K1/K2, ~291M windows)
+        reset(S.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        one_rd = os.path.join(WORK, "one_step_e2e")
+        t0 = time.perf_counter()
+        port_run(fof_e2e, one_rd, 31, eng_rd, ["--max-memory", "65536",
+                                              "--nb-partitions", str(nparts)])
+        one_s = time.perf_counter() - t0
+        one_peak = torch.cuda.max_memory_allocated()
+        if not S.LAUNCHES["bwd"] > 0:
+            raise AssertionError("the --max-memory 65536 run did not take "
+                                 "the one-step path")
+        one_files, one_bytes = compare_run_dirs(eng_rd, one_rd)
+        # forced folds: 16x smaller chunks, a table budget just above the
+        # final table
+        reset(MR.LAUNCHES)
+        fold_rd = os.path.join(WORK, "folds_e2e")
+        budget = int(8192 * 1e6 / BYTES_PER_WINDOW)
+        t0 = time.perf_counter()
+        run_pipeline(PipelineOptions(
+            fof=fof_e2e, run_dir=fold_rd, kmer_size=31, hard_min=2,
+            soft_min="2", share_min=2, recurrence_min=1, repart_from=eng_rd,
+            nb_partitions=nparts), device="cuda",
+            chunk_windows=budget // 16,
+            table_cap=int(eng["table_entries"] * 1.05))
+        fold_s = time.perf_counter() - t0
+        folds = dict(SE.last_run)
+        if folds["folds"] < 2:
+            raise AssertionError(f"expected two or more folds: {folds}")
+        fold_files, fold_bytes = compare_run_dirs(eng_rd, fold_rd)
+        emit({"phase": "engine_full_size", "bank_gen_s": e2e_gen_s,
+              "main_path_wall_s": eng_s, "phase_walls_s": eng["walls_s"],
+              # config, repartition (host tally) and bank estimates
+              "outside_engine_s": eng_s - sum(eng["walls_s"].values()),
+              "chunks": eng["chunks"], "rows_per_chunk": eng["rows_per_chunk"],
+              "runs": eng["runs"], "folds": eng["folds"],
+              "run_entries": eng["run_entries"],
+              "table_entries": eng["table_entries"], "rows": eng["rows"],
+              "partitions": nparts, "peak_device_bytes": eng_peak,
+              "launches": eng_launches,
+              "one_step_wall_s": one_s, "one_step_peak_device_bytes":
+              one_peak, "one_step_files_identical": one_files,
+              "one_step_bytes": one_bytes,
+              "forced_fold_wall_s": fold_s, "forced_fold_chunks":
+              folds["chunks"], "forced_folds": folds["folds"],
+              "forced_fold_k4_launches": MR.LAUNCHES["K4"],
+              "forced_fold_files_identical": fold_files,
+              "forced_fold_bytes": fold_bytes, "gpu": smi})
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -397,6 +629,7 @@ def main() -> int:
     if jax_mods:
         raise AssertionError(f"jax was imported: {jax_mods[:5]}")
     src = "kmtricks_tpu_torch/csrc/segscan.cu"
+    msrc = "kmtricks_tpu_torch/csrc/merge_runs.cu"
     emit({"kernels": [
         {"name": "segscan_bwd (K1)", "route": "cuda", "source": src,
          "replaces": "kmtricks_tpu/ops/pallas_segscan.py:123",
@@ -406,6 +639,16 @@ def main() -> int:
          "replaces": "kmtricks_tpu/ops/pallas_segscan.py:176",
          "launches": launches["fwd"], "max_abs_err": errs[1],
          "ms": times["K2"], "plain_ms": times["K2_plain"]},
+        # K3 is not on this slice's path (the one-word, payload-free form
+        # merges multi-GPU receivers' runs): its launches are 0 here
+        {"name": "merge_runs one word (K3)", "route": "cuda",
+         "source": msrc, "replaces": "kmtricks_tpu/ops/pallas_sort.py:136",
+         "launches": eng_launches["K3"], "max_abs_err": merrs["K3"],
+         "ms": mtimes["K3"], "plain_ms": mtimes["K3_plain"]},
+        {"name": "merge_runs words + count (K4)", "route": "cuda",
+         "source": msrc, "replaces": "kmtricks_tpu/ops/pallas_sort.py:318",
+         "launches": eng_launches["K4"], "max_abs_err": merrs["K4"],
+         "ms": mtimes["K4"], "plain_ms": mtimes["K4_plain"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

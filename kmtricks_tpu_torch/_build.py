@@ -68,3 +68,15 @@ def segscan_lib() -> ctypes.CDLL:
     if lib.km_segscan_tile() != TILE:
         raise RuntimeError("csrc/segscan.cu TILE differs from _build.TILE")
     return lib
+
+
+@functools.cache
+def merge_runs_lib() -> ctypes.CDLL:
+    """The merge-path run merge K3/K4 (built on first call)."""
+    lib = ctypes.CDLL(build("merge_runs"))
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.km_merge_runs.restype = i
+    lib.km_merge_runs.argtypes = [i, p, p, p, i64, p, p, p, i64, p, p, p, p]
+    lib.km_error_string.restype = ctypes.c_char_p
+    lib.km_error_string.argtypes = [i]
+    return lib

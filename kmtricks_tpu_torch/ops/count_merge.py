@@ -45,6 +45,26 @@ def packed_layout(nsamp: int, key_bits: int, part_bits: int) -> str:
         f"bits and {key_bits} key bits")
 
 
+def stream_layout(k: int, nb_parts: int, nsamp: int) -> str:
+    """The streaming engine's packed layout (counterpart of
+    ``kmtricks_tpu/parallel/pipeline.py::stream_layout``, k-mer mode,
+    k <= 32): k2 or k3 from :func:`packed_layout`, which raises for
+    layouts that do not pack (the JAX package takes ``stage_mesh_chunked``
+    for those)."""
+    return packed_layout(nsamp, 2 * k, (nb_parts - 1).bit_length())
+
+
+def _layout_words(layout: str) -> int:
+    """The JAX package's u32 word count of the layout (2 for k2, 3 for
+    k3), which its table budget is written in; the port's int64 layouts
+    take one word fewer."""
+    if layout.startswith("k2."):
+        return 2
+    if layout == "k3":
+        return 3
+    raise NotImplementedError(layout)
+
+
 def _k2_params(layout: str):
     _, pb, kb = layout.split(".")
     return int(pb), int(kb)
@@ -52,20 +72,21 @@ def _k2_params(layout: str):
 
 def pack_words(layout: str, part, keys, samp, valid, nsamp: int):
     """Pack (N,) occurrences into the layout's int64 sort words (most
-    significant first). ``keys`` are int64 canonical k-mers."""
+    significant first). ``keys`` are int64 canonical k-mers; invalid
+    entries take the INT64_MAX sentinel (``valid=None``: all valid)."""
     sb = _samp_bits(nsamp)
     part = part.to(torch.int64)
     samp = samp.to(torch.int64)
     if layout.startswith("k2."):
         _pb, kb = _k2_params(layout)
-        w = (part << (kb + sb)) | (keys << sb) | samp
-        return (torch.where(valid, w, INT64_MAX),)
-    if layout == "k3":
-        hi = (part << 32) | shr(keys, 32)
-        lo = ((keys & _LO32) << sb) | samp
-        return (torch.where(valid, hi, INT64_MAX),
-                torch.where(valid, lo, INT64_MAX))
-    raise NotImplementedError(layout)
+        words = ((part << (kb + sb)) | (keys << sb) | samp,)
+    elif layout == "k3":
+        words = ((part << 32) | shr(keys, 32), ((keys & _LO32) << sb) | samp)
+    else:
+        raise NotImplementedError(layout)
+    if valid is None:
+        return words
+    return tuple(torch.where(valid, w, INT64_MAX) for w in words)
 
 
 def sort_packed(layout: str, words):

@@ -1,16 +1,21 @@
-"""``pipeline`` driver: config -> repartition -> one fused device step.
+"""``pipeline`` command: config -> repartition -> device count+merge.
 
 Counterpart of ``kmtricks_tpu/runtime/device_pipeline.py::
 run_mesh_pipeline`` on one device, for the slice this package ports:
-``kmer:count:bin``, k <= 32, collections that fit one device step. The
-repartition, soft-min and run-directory code is the JAX package's own host
-code (numpy); the config stage is a twin whose build_infos.txt does not
-ask jax for its version. Anything outside the slice raises
+``kmer:count:bin``, k <= 32. It routes as the JAX package does: a
+collection that fits one device step takes the fused step
+(:mod:`kmtricks_tpu_torch.runtime.device_pipeline`); a larger one, or a
+run that wants histograms or a float soft-min, takes the streaming engine
+(:mod:`kmtricks_tpu_torch.runtime.stream_engine`). The repartition,
+soft-min and run-directory code is the JAX package's own host code
+(numpy); the config stage is a twin whose build_infos.txt does not ask
+jax for its version. Anything outside the slice raises
 NotImplementedError; nothing falls back to another path.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import time
 
@@ -24,25 +29,30 @@ from kmtricks_tpu.runtime.pipeline import (
     PipelineOptions, _finish, parse_mode, resolve_soft_min, stage_repart)
 
 from kmtricks_tpu_torch import build_infos
+from kmtricks_tpu_torch.ops.count_merge import packed_layout
 from kmtricks_tpu_torch.runtime.device_pipeline import (
-    _load_global_batch, stage_count_merge)
+    _is_float_quantile, _load_global_batch, _needs_host_aggregation,
+    stage_count_merge)
+from kmtricks_tpu_torch.runtime.stream_engine import stage_mesh_stream
+
+log = logging.getLogger("kmtricks_tpu")
 
 # bytes of device sort operands per window: the JAX package's single-step
 # budget (--max-memory / 48 windows)
 BYTES_PER_WINDOW = 48
 
 
-def _is_float(spec: str) -> bool:
-    try:
-        int(spec)
-        return False
-    except ValueError:
-        pass
-    try:
-        float(spec)
+def _packs(opts: PipelineOptions) -> bool:
+    """The sort layout packs (k2 or k3) for an explicit --nb-partitions;
+    an automatic count is checked once the config has set it."""
+    if opts.nb_partitions <= 0 or not 0 < opts.kmer_size <= 32:
         return True
-    except ValueError:
+    try:
+        packed_layout(len(Fof.parse(opts.fof)), 2 * opts.kmer_size,
+                      (opts.nb_partitions - 1).bit_length())
+    except NotImplementedError:
         return False
+    return True
 
 
 def check_slice(opts: PipelineOptions) -> None:
@@ -53,18 +63,20 @@ def check_slice(opts: PipelineOptions) -> None:
          f"--mode {opts.mode} (only kmer:count:bin)"),
         (not 0 < opts.kmer_size <= 32, f"k = {opts.kmer_size} (only k <= 32)"),
         (opts.until not in ("merge", "all"), f"--until {opts.until}"),
-        (opts.hist, "--hist (histograms)"),
-        (_is_float(opts.soft_min), "a float --soft-min"),
         (opts.static_repart, "--static-repart"),
         (opts.minim_type == 1, "--minimizer-type 1"),
         (opts.restrict_to < 1.0 or bool(opts.restrict_to_list),
          "--restrict-to / --restrict-to-list"),
         (opts.kff, "--kff-output"),
+        (not _packs(opts),
+         f"{opts.nb_partitions} partitions at k = {opts.kmer_size} (no "
+         "packed sort layout; the JAX package's stage_mesh_chunked)"),
     ]
     for bad, what in unported:
         if bad:
-            raise NotImplementedError(f"kmtricks_tpu_torch does not port {what}"
-                                      " yet; run kmtricks_tpu instead")
+            raise NotImplementedError(
+                f"kmtricks_tpu_torch does not port {what} yet; run "
+                "kmtricks_tpu instead")
 
 
 def _init_run_dir(opts: PipelineOptions) -> KmDir:
@@ -118,12 +130,21 @@ def _repart_on_host(kmdir, config, opts):
             os.environ[key] = prev
 
 
-def run_pipeline(opts: PipelineOptions, device="cuda"):
+def run_pipeline(opts: PipelineOptions, device="cuda", *,
+                 chunk_windows: int | None = None,
+                 table_cap: int | None = None):
     """Run ``pipeline`` for the ported slice on ``device`` (a CUDA device;
-    "cpu" runs the kernels' plain versions). Returns the KmDir."""
+    "cpu" runs the kernels' plain versions). ``chunk_windows`` and
+    ``table_cap`` set the streaming engine's chunk size and table budget
+    (defaults: the one-step budget and the JAX engine's). Returns the
+    KmDir."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
+    if _is_float_quantile(opts.soft_min) and not opts.hist:
+        # the quantile thresholds are read from the histogram files
+        log.info("float --soft-min: enabling histograms")
+        opts.hist = True
     check_slice(opts)
     t0 = time.time()
     kmdir, config = stage_config(opts)
@@ -131,20 +152,25 @@ def run_pipeline(opts: PipelineOptions, device="cuda"):
     if getattr(repart, "freq", None) is not None:
         raise NotImplementedError("frequency-ordered minimizers")
     budget_windows = int(opts.max_memory_mb * 1e6 / BYTES_PER_WINDOW)
+
+    def engine(**kw):
+        stage_mesh_stream(kmdir, config, opts, repart, None, device=device,
+                          chunk_windows=chunk_windows or budget_windows,
+                          table_cap=table_cap, **kw)
+
+    # an upper bound on the bases (gz sized x4): beyond the one-step
+    # budget the collection streams from the banks and is never loaded
     est_bytes = sum(os.path.getsize(p) * (4 if p.endswith("gz") else 1)
                     for e in kmdir.fof for p in e.paths)
     if est_bytes > budget_windows:
-        raise NotImplementedError(
-            f"the collection ({est_bytes} bytes) exceeds one device step "
-            f"({budget_windows} windows at --max-memory "
-            f"{opts.max_memory_mb}): the streaming engine is not ported")
+        engine(use_stream=True)
+        return _finish(kmdir, t0)
     batch, lengths, sarr = _load_global_batch(kmdir, opts)
     n_windows = batch.shape[0] * (batch.shape[1] - config.kmer_size + 1)
-    if n_windows > budget_windows:
-        raise NotImplementedError(
-            f"{n_windows} padded windows exceed one device step "
-            f"({budget_windows}): the streaming engine is not ported")
-    amin_vec = resolve_soft_min(opts.soft_min, kmdir, len(kmdir.fof))
-    stage_count_merge(kmdir, config, opts, repart, amin_vec, batch, lengths,
-                      sarr, device)
+    if n_windows > budget_windows or _needs_host_aggregation(opts):
+        engine(batch=batch, lengths=lengths, sarr=sarr)
+    else:
+        amin_vec = resolve_soft_min(opts.soft_min, kmdir, len(kmdir.fof))
+        stage_count_merge(kmdir, config, opts, repart, amin_vec, batch,
+                          lengths, sarr, device)
     return _finish(kmdir, t0)

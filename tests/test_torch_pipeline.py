@@ -133,17 +133,25 @@ def test_run_pipeline_matches_host_backend(tmp_path, case):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing every port module and running the CPU pipeline leaves jax
-    out of sys.modules (run in a fresh interpreter)."""
+    """Importing every port module and running the CPU pipeline, through
+    the one-step path and through the streaming engine (chunks decoded
+    from the banks, histograms, a float soft-min), leaves jax out of
+    sys.modules (run in a fresh interpreter)."""
     fof = write_fof(tmp_path / "c.fof")
     code = f"""
 import sys
 import kmtricks_tpu_torch, kmtricks_tpu_torch.cli, kmtricks_tpu_torch._build
 import kmtricks_tpu_torch.convert, kmtricks_tpu_torch.ops.segscan
+import kmtricks_tpu_torch.ops.merge_runs, kmtricks_tpu_torch.ops.table
 from kmtricks_tpu.runtime.pipeline import PipelineOptions
 from kmtricks_tpu_torch.runtime.pipeline import run_pipeline
+from kmtricks_tpu_torch.runtime import stream_engine
 run_pipeline(PipelineOptions(fof={fof!r}, run_dir={str(tmp_path / 'rd')!r},
                              kmer_size=31), device="cpu")
+run_pipeline(PipelineOptions(fof={fof!r}, run_dir={str(tmp_path / 'se')!r},
+                             kmer_size=31, max_memory_mb=1, soft_min="0.5",
+                             threads=2), device="cpu")
+assert stream_engine.last_run["chunks"] > 1
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib"))]
 assert not bad, bad
 print("jax-free")
@@ -176,8 +184,8 @@ def test_cli_refuses_unported_commands(argv):
 
 @pytest.mark.parametrize("opt", [
     dict(mode="hash:count:bin"), dict(mode="kmer:pa:bin"),
-    dict(kmer_size=41), dict(hist=True), dict(soft_min="0.5"),
-    dict(static_repart=True), dict(restrict_to=0.5), dict(until="count"),
+    dict(kmer_size=41), dict(static_repart=True), dict(restrict_to=0.5),
+    dict(until="count"), dict(nb_partitions=1 << 17),
 ])
 def test_run_pipeline_refuses_outside_the_slice(tmp_path, opt):
     fof = write_fof(tmp_path / "c.fof")
