@@ -10,7 +10,9 @@ It drives the port's main path (``pipeline --mode kmer:count:bin``) and
 checks it, in phases that each print one JSON line:
 
 1. probe: torch, CUDA and nvcc versions, the card's name and power limit;
-2. build: compiles the CUDA kernels from ``kmtricks_tpu_torch/csrc``;
+2. build: compiles the CUDA kernels from ``kmtricks_tpu_torch/csrc``, with
+   the registers, spills and shared memory that ``-Xptxas -v`` reports for
+   the merge kernels;
 3. kernels: K1/K2 against their plain PyTorch versions on the card, bit
    for bit and ten launches per case, on the cases of
    tests/test_pallas_segscan.py, at the CUDA tile's edges, on runs that
@@ -24,10 +26,13 @@ checks it, in phases that each print one JSON line:
    and the kernels' launch counts, and its matrices against the host
    stages byte for byte;
 6. merge kernels: K4 (one and two key words, count payload) and K3 (one
-   word, no payload) against their plain PyTorch version, bit for bit, on
-   the cases of tests/test_routed_merge.py and on the phase-A runs of the
-   phase-8 bank, with the kernel, plain and (K3) torch.sort times and the
-   bytes bound there;
+   word, no payload) against their plain PyTorch version, bit for bit and
+   ten launches per case, on the cases of tests/test_routed_merge.py, at
+   the CUDA tile's edges (runs ending at a tile boundary and +-1, a last
+   tile of one element, ties over 35 tiles, disjoint runs, windows at odd
+   int64 slots), on the phase-A runs of the phase-8 bank and on the same
+   entries dealt into 8 runs, with the kernel, plain and (K3) torch.sort
+   times and the bytes bound there;
 7. engine parity: the phase-4 bank through the streaming engine (about
    ten chunks at a low --max-memory) at k = 31 and k = 21, and with
    --hist --soft-min 0.5, against the host stages byte for byte,
@@ -39,6 +44,11 @@ checks it, in phases that each print one JSON line:
    (--max-memory 65536) and against an engine run whose small table
    budget forces two or more folds through K4.
 
+Kernel times are device times: CUDA events around a batch of
+back-to-back calls enqueued behind a sleep kernel, divided by their
+count, three times (``device_ms``); ``call_ms`` is one call between two
+events, the wrapper's host time included.
+
 Then one JSON line of kernel results and, last, the device line. Any
 failure raises and exits non-zero; without CUDA it exits non-zero before
 printing a result. Nothing here imports jax or the JAX package
@@ -48,8 +58,10 @@ printing a result. Nothing here imports jax or the JAX package
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -64,7 +76,7 @@ WORK = os.path.join(ROOT, ".smoke_work")
 OPTS = ["--hard-min", "2", "--soft-min", "2", "--share-min", "2",
         "--recurrence-min", "1"]
 TPU_TILE = 8192           # the Pallas kernels' tile (pallas_segscan.TILE)
-REPEATS = 10              # launches of K1/K2 per phase-3 case
+REPEATS = 10              # kernel launches per phase-3 and phase-6 case
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 SMALL_MEM = 75            # MB: about ten engine chunks of the phase-4 bank
 
@@ -74,8 +86,10 @@ def emit(obj) -> None:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` runs, after a
-    warm-up run and a synchronize."""
+    """Median time of one call of ``fn`` in ms over ``reps`` calls, each
+    between two CUDA events on an idle stream, after a warm-up call and a
+    synchronize. The start event is stamped at once, so the number
+    includes the wrapper's host time (``call_ms``)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -88,6 +102,84 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+@functools.cache
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per ms on this card."""
+    torch.cuda._sleep(10**6)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10**7)
+    end.record()
+    end.synchronize()
+    return 1e7 / start.elapsed_time(end)
+
+
+def device_ms(fn, repeats: int = 3, batch_ms: float = 20.0) -> list:
+    """Device time of one call of ``fn`` in ms, ``repeats`` times: CUDA
+    events around a batch of back-to-back calls (about ``batch_ms`` of
+    work), divided by their count. The batch is enqueued behind a sleep
+    kernel, so the wrapper's host time overlaps the device's work; the
+    start event must still be pending once the last call is enqueued
+    (else the sleep is lengthened and the batch runs again)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    count = int(min(200, max(3, batch_ms / max(cuda_ms(fn, 1), 1e-3))))
+    out = []
+    for _ in range(repeats):
+        sleep_ms = 2.0 * count * host_ms + 1.0
+        for _attempt in range(4):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
+            start.record()
+            for _ in range(count):
+                fn()
+            end.record()
+            ahead = not start.query()
+            end.synchronize()
+            if ahead:
+                break
+            sleep_ms *= 4
+        else:
+            raise AssertionError("device_ms: the host never got ahead of "
+                                 "the device")
+        out.append(start.elapsed_time(end) / count)
+    return out
+
+
+def profiled_kernel_ms(fn, calls: int = 5) -> dict:
+    """Device time per call of each CUDA kernel that ``fn`` launches, in
+    ms, from ``torch.profiler`` over ``calls`` calls (empty if the
+    profiler recorded no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.name.split("(")[0][:60]
+            out[name] = out.get(name, 0.0) + (
+                ev.time_range.elapsed_us() / 1e3 / calls)
+    return out
+
+
+def median(xs) -> float:
+    return float(np.median(xs))
 
 
 def max_err(got, exp) -> int:
@@ -362,7 +454,7 @@ def sorted_runs(rng, lens, nw, payload, span, dev):
 
 
 def merge_cases(dev):
-    """(runs, kernel) on the grids of tests/test_routed_merge.py: 2 to 8
+    """Runs on the grids of tests/test_routed_merge.py: 2 to 8
     runs, lengths that are and are not powers of two, runs shorter than
     the TPU tile, empty runs, and many ties across runs."""
     rng = np.random.default_rng(0)
@@ -373,23 +465,118 @@ def merge_cases(dev):
     for lens in grids:
         for span in (1 << 62, 64):
             for nw, payload in ((1, True), (2, True), (1, False)):
-                yield (sorted_runs(rng, lens, nw, payload, span, dev),
-                       "K4" if payload else "K3")
+                yield sorted_runs(rng, lens, nw, payload, span, dev)
 
 
-def merge_err(runs, MR) -> int:
-    """The merge kernel against its plain version on the same runs; 0 or
+def merge_kind(runs) -> str:
+    """The kernel the wrapper counts for these runs."""
+    words, payload = runs[0]
+    return "K4" if payload is not None or len(words) > 1 else "K3"
+
+
+def at_odd_slot(t):
+    """A copy of ``t`` that starts 8 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t
+    return buf[1:]
+
+
+def tile_edge_merge_cases(dev, tile):
+    """Runs at the CUDA kernel's own tile: runs that end at a tile boundary
+    and at +-1 of it, a last tile of one element, one run wholly before
+    the other, equal keys over many tiles, and windows that start at odd
+    int64 slots (key words, payload or both)."""
+    rng = np.random.default_rng(4)
+    t = tile
+    for lens in ([t, t], [t - 1, t + 1], [t + 1, t], [2 * t - 1, 1],
+                 [1, 2 * t], [3 * t, t + 1], [t - 1, 0, 2 * t + 2]):
+        for nw, payload in ((1, False), (2, True), (1, True)):
+            yield sorted_runs(rng, lens, nw, payload, 1 << 62, dev)
+    for nw, payload in ((1, False), (2, True)):          # one key, 35 tiles
+        yield [(tuple(torch.full((n,), 7, dtype=torch.int64, device=dev)
+                      for _ in range(nw)),
+                torch.arange(n, dtype=torch.int64, device=dev) + 10 * r
+                if payload else None)
+               for r, n in enumerate((20 * t + 3, 15 * t))]
+    yield sorted_runs(rng, [12 * t + 5, 9 * t - 3], 2, True, 3, dev)
+    for first, second in ((0, 1), (1, 0)):               # disjoint runs
+        lo = torch.arange(5 * t + 7, dtype=torch.int64, device=dev)
+        hi = torch.arange(3 * t, dtype=torch.int64, device=dev) + (1 << 40)
+        ab = (lo, hi)
+        yield [((ab[first],), None), ((ab[second],), None)]
+    for shift in ("a", "b", "payload", "all"):
+        (aw, ap), (bw, bp) = sorted_runs(rng, [4 * t + 3, 3 * t + 2], 2,
+                                         True, 1 << 62, dev)
+        if shift in ("a", "all"):
+            aw = tuple(at_odd_slot(w) for w in aw)
+        if shift in ("b", "all"):
+            bw = tuple(at_odd_slot(w) for w in bw)
+        if shift in ("payload", "all"):
+            ap, bp = at_odd_slot(ap), at_odd_slot(bp)
+        yield [(aw, ap), (bw, bp)]
+
+
+def merge_err(runs, MR, reps: int = 1) -> int:
+    """The merge kernel against its plain version on the same runs,
+    ``reps`` launches (a race would show only now and then); 0 or
     raises."""
     def flat(res):
         words, payload = res
         return tuple(words) + (() if payload is None else (payload,))
 
-    got = flat(MR.merge_sorted_runs_cuda(runs))
     exp = flat(MR.merge_sorted_runs_torch(runs))
-    torch.cuda.synchronize()
-    if len(got) != len(exp):
-        raise AssertionError("merge kernel output has the wrong arity")
-    return max_err(got, exp)
+    err = 0
+    for _ in range(reps):
+        got = flat(MR.merge_sorted_runs_cuda(runs))
+        torch.cuda.synchronize()
+        if len(got) != len(exp):
+            raise AssertionError("merge kernel output has the wrong arity")
+        err = max(err, max_err(got, exp))
+    return err
+
+
+def split_runs(words, payload, parts, seed):
+    """Sorted (words, payload) dealt at random into ``parts`` sorted runs
+    that interleave over the whole key range."""
+    g = torch.Generator(device=words[0].device).manual_seed(seed)
+    label = torch.randint(0, parts, (words[0].numel(),), generator=g,
+                          device=words[0].device)
+    return [(tuple(w[label == r] for w in words), payload[label == r])
+            for r in range(parts)]
+
+
+def ptxas_report(name: str, flags=(), src=None) -> dict:
+    """Registers, spills and static shared memory of each kernel of
+    ``csrc/<name>.cu`` (or ``src``) built with extra ``flags``, as
+    ``nvcc -Xptxas -v`` prints them."""
+    from kmtricks_tpu_torch import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_build.BUILD_DIR, f"ptxas_{name}_{os.getpid()}.so")
+    try:
+        res = subprocess.run(
+            [_build._nvcc()] + _build.NVCC_FLAGS + list(flags) + [
+                "-Xptxas", "-v", "-o", out,
+                src or os.path.join(_build._CSRC, f"{name}.cu")],
+            capture_output=True, text=True, check=True)
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    report, fn = {}, None
+    for line in (res.stdout + res.stderr).splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and ("spill" in line or "Used" in line):
+            report.setdefault(fn, []).append(line.split(":", 1)[-1].strip()
+                                             if "Used" in line
+                                             else line.strip())
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(report),
+                               capture_output=True, text=True,
+                               check=True).stdout.split("\n")
+        report = {n.split("(")[0]: v for n, v in zip(names, report.values())}
+    return report
 
 
 def phase_a_runs(fof, run_dir, k, dev):
@@ -446,12 +633,21 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        ptxas = ex.submit(ptxas_report, "merge_runs")
         for f in [ex.submit(_build.segscan_lib),
                   ex.submit(_build.merge_runs_lib)]:
             f.result()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": ["csrc/segscan.cu", "csrc/merge_runs.cu"]})
+        build_s = time.perf_counter() - t0
+        ptxas = ptxas.result()
+    emit({"phase": "build", "seconds": build_s,
+          "sources": ["csrc/segscan.cu", "csrc/merge_runs.cu"],
+          "merge_runs_ptxas": ptxas,
+          # merge_tiles' dynamic shared memory by arrays staged
+          # (key words + payload): 2 stages of TILE + 4 int64, 2 B/output
+          "merge_tiles_dynamic_smem_bytes": {
+              arrays: 2 * arrays * (_build.MERGE_TILE + 4) * 8
+              + 2 * _build.MERGE_TILE for arrays in (1, 2, 3)}})
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -481,13 +677,14 @@ def main() -> int:
         cnt, present, solid, suffix = S.segscan_bwd_torch(
             *seg_in, count_max=2**32 - 1)
         fwd_args = (present, solid, suffix, seg_in[1], seg_in[2], cnt)
+        k1 = lambda: S.segscan_bwd_cuda(*seg_in, count_max=2**32 - 1)
+        k2 = lambda: S.segscan_fwd_cuda(*fwd_args, rmin=1, save_if=2)
+        dev_ms = {"K1": device_ms(k1), "K2": device_ms(k2)}
         times = {
-            "K1": cuda_ms(lambda: S.segscan_bwd_cuda(
-                *seg_in, count_max=2**32 - 1)),
+            "K1": median(dev_ms["K1"]), "K1_call": cuda_ms(k1),
             "K1_plain": cuda_ms(lambda: S.segscan_bwd_torch(
                 *seg_in, count_max=2**32 - 1)),
-            "K2": cuda_ms(lambda: S.segscan_fwd_cuda(
-                *fwd_args, rmin=1, save_if=2)),
+            "K2": median(dev_ms["K2"]), "K2_call": cuda_ms(k2),
             "K2_plain": cuda_ms(lambda: S.segscan_fwd_torch(
                 *fwd_args, rmin=1, save_if=2)),
         }
@@ -497,7 +694,8 @@ def main() -> int:
         emit({"phase": "kernels", "cases": ncases, "repeats": REPEATS,
               "tile": _build.TILE, "n_full": n,
               "max_abs_err": {"K1": errs[0], "K2": errs[1]},
-              "ms_median_of_5": times, "bound_ms": bound, "gpu": smi})
+              "device_ms_3_repeats": dev_ms,
+              "ms": times, "bound_ms": bound, "gpu": smi})
         del seg_in, cnt, present, solid, suffix, fwd_args
         torch.cuda.empty_cache()
 
@@ -552,35 +750,53 @@ def main() -> int:
         e2e_gen_s = time.perf_counter() - t0
         merrs = {"K3": 0, "K4": 0}
         ncases = 0
-        for runs, kern in merge_cases(dev):
-            merrs[kern] = max(merrs[kern], merge_err(runs, MR))
-            ncases += 1
         runs4 = phase_a_runs(fof_e2e, os.path.join(WORK, "runs_e2e"), 31,
                              dev)
         runs3 = [((w[0],), None) for w, _c in runs4]
-        for runs, kern in ((runs4, "K4"), (runs3, "K3")):
-            merrs[kern] = max(merrs[kern], merge_err(runs, MR))
-        ncases += 2
+        for runs in list(merge_cases(dev)) + list(
+                tile_edge_merge_cases(dev, _build.MERGE_TILE)) + [runs4,
+                                                                  runs3]:
+            kern = merge_kind(runs)
+            merrs[kern] = max(merrs[kern], merge_err(runs, MR, REPEATS))
+            ncases += 1
+        # 8 interleaved runs of the same entries: three tree levels
+        runs8 = split_runs(*MR.merge_sorted_runs_torch(runs4), 8, seed=8)
+        merrs["K4"] = max(merrs["K4"], merge_err(runs8, MR, REPEATS))
+        ncases += 1
         words0 = [w[0] for (w, _p) in runs3]
+        k4 = lambda: MR.merge_sorted_runs_cuda(runs4)
+        k3 = lambda: MR.merge_sorted_runs_cuda(runs3)
+        k4_8 = lambda: MR.merge_sorted_runs_cuda(runs8)
+        # K3's function as one PyTorch call (timed here only)
+        lib3 = lambda: torch.sort(torch.cat(words0), stable=True)
+        mdev_ms = {"K4": device_ms(k4), "K3": device_ms(k3),
+                   "K3_library": device_ms(lib3), "K4_8_runs": device_ms(k4_8)}
         mtimes = {
-            "K4": cuda_ms(lambda: MR.merge_sorted_runs_cuda(runs4)),
+            "K4": median(mdev_ms["K4"]), "K4_call": cuda_ms(k4),
             "K4_plain": cuda_ms(lambda: MR.merge_sorted_runs_torch(runs4)),
-            "K3": cuda_ms(lambda: MR.merge_sorted_runs_cuda(runs3)),
+            "K3": median(mdev_ms["K3"]), "K3_call": cuda_ms(k3),
             "K3_plain": cuda_ms(lambda: MR.merge_sorted_runs_torch(runs3)),
-            # K3's function as one PyTorch call (timed here only)
-            "K3_library": cuda_ms(lambda: torch.sort(
-                torch.cat(words0), stable=True)),
+            "K3_library": median(mdev_ms["K3_library"]),
+            "K4_8_runs": median(mdev_ms["K4_8_runs"]),
         }
         entries = sum(int(c.shape[0]) for _w, c in runs4)
         nw = len(runs4[0][0])
-        # int64 words (+ the count for K4), read once and written once
+        # int64 words (+ the count for K4), read once and written once; a
+        # one-pass merge of the 8 runs moves K4's bytes once, the tree
+        # three times
         mbound = {"K4": entries * 2 * 8 * (nw + 1) / HBM_BYTES_PER_S * 1e3,
                   "K3": entries * 2 * 8 / HBM_BYTES_PER_S * 1e3}
-        emit({"phase": "merge_kernels", "cases": ncases,
+        mbound["K4_8_runs_one_pass"] = mbound["K4"]
+        emit({"phase": "merge_kernels", "cases": ncases, "repeats": REPEATS,
+              "tile": _build.MERGE_TILE,
               "phase_a_runs": [int(c.shape[0]) for _w, c in runs4],
+              "runs8": [int(c.shape[0]) for _w, c in runs8],
               "phase_a_key_words": nw, "max_abs_err": merrs,
-              "ms_median_of_5": mtimes, "bound_ms": mbound, "gpu": smi})
-        del runs, runs3, runs4, words0
+              "device_ms_3_repeats": mdev_ms,
+              "profiled_kernel_ms": {"K4": profiled_kernel_ms(k4),
+                                     "K3": profiled_kernel_ms(k3)},
+              "ms": mtimes, "bound_ms": mbound, "gpu": smi})
+        del runs, runs3, runs4, runs8, words0
         torch.cuda.empty_cache()
 
         # 7. engine parity on the phase-4 bank, about ten chunks
@@ -624,8 +840,10 @@ def main() -> int:
         eng_launches = {**S.LAUNCHES, **MR.LAUNCHES}
         eng_peak = torch.cuda.max_memory_allocated()
         eng = dict(SE.last_run)
-        if not eng_launches["K4"] > 0:
-            raise AssertionError(f"engine skipped the merge: {eng_launches}")
+        if not eng_launches["K4"] > 0 \
+                or eng_launches["K4_split"] != eng_launches["K4"]:
+            raise AssertionError(f"engine skipped the merge or its "
+                                 f"partition: {eng_launches}")
         nparts = len(os.listdir(os.path.join(eng_rd, "merge_infos")))
         # the one-step path on the same bank (K1/K2, ~291M windows)
         reset(S.LAUNCHES)
@@ -673,6 +891,7 @@ def main() -> int:
               "forced_fold_wall_s": fold_s, "forced_fold_chunks":
               folds["chunks"], "forced_folds": folds["folds"],
               "forced_fold_k4_launches": MR.LAUNCHES["K4"],
+              "forced_fold_k4_split_launches": MR.LAUNCHES["K4_split"],
               "forced_fold_files_identical": fold_files,
               "forced_fold_bytes": fold_bytes, "gpu": smi})
     finally:
@@ -689,25 +908,33 @@ def main() -> int:
         {"name": "segscan_bwd (K1)", "route": "cuda", "source": src,
          "replaces": "kmtricks_tpu/ops/pallas_segscan.py:123",
          "launches": launches["bwd"], "max_abs_err": errs[0],
-         "ms": times["K1"], "plain_ms": times["K1_plain"],
+         "ms": times["K1"], "call_ms": times["K1_call"],
+         "plain_ms": times["K1_plain"],
          "bound_ms": bound["K1"], "bound_by": "bytes", "library_ms": None},
         {"name": "segscan_fwd (K2)", "route": "cuda", "source": src,
          "replaces": "kmtricks_tpu/ops/pallas_segscan.py:176",
          "launches": launches["fwd"], "max_abs_err": errs[1],
-         "ms": times["K2"], "plain_ms": times["K2_plain"],
+         "ms": times["K2"], "call_ms": times["K2_call"],
+         "plain_ms": times["K2_plain"],
          "bound_ms": bound["K2"], "bound_by": "bytes", "library_ms": None},
         # K3 is not on this slice's path (the one-word, payload-free form
         # merges multi-GPU receivers' runs): its launches are 0 here
         {"name": "merge_runs one word (K3)", "route": "cuda",
          "source": msrc, "replaces": "kmtricks_tpu/ops/pallas_sort.py:136",
-         "launches": eng_launches["K3"], "max_abs_err": merrs["K3"],
-         "ms": mtimes["K3"], "plain_ms": mtimes["K3_plain"],
+         "launches": eng_launches["K3"],
+         "partition_launches": eng_launches["K3_split"],
+         "max_abs_err": merrs["K3"],
+         "ms": mtimes["K3"], "call_ms": mtimes["K3_call"],
+         "plain_ms": mtimes["K3_plain"],
          "bound_ms": mbound["K3"], "bound_by": "bytes",
          "library_ms": mtimes["K3_library"]},
         {"name": "merge_runs words + count (K4)", "route": "cuda",
          "source": msrc, "replaces": "kmtricks_tpu/ops/pallas_sort.py:318",
-         "launches": eng_launches["K4"], "max_abs_err": merrs["K4"],
-         "ms": mtimes["K4"], "plain_ms": mtimes["K4_plain"],
+         "launches": eng_launches["K4"],
+         "partition_launches": eng_launches["K4_split"],
+         "max_abs_err": merrs["K4"],
+         "ms": mtimes["K4"], "call_ms": mtimes["K4_call"],
+         "plain_ms": mtimes["K4_plain"],
          "bound_ms": mbound["K4"], "bound_by": "bytes", "library_ms": None},
     ]})
     print(smi, flush=True)

@@ -23,6 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 TILE = 4096     # elements per block of the segscan kernels (csrc/segscan.cu)
+MERGE_TILE = 4096   # outputs per tile of the merge kernels (merge_runs.cu)
 
 
 def _nvcc() -> str:
@@ -76,7 +77,13 @@ def merge_runs_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(build("merge_runs"))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.km_merge_runs.restype = i
-    lib.km_merge_runs.argtypes = [i, p, p, p, i64, p, p, p, i64, p, p, p, p]
+    lib.km_merge_runs.argtypes = [i, p, p, p, i64, p, p, p, i64, p, p, p, p,
+                                  i64, p]
+    lib.km_merge_tile.restype = i
+    lib.km_merge_tile.argtypes = []
     lib.km_error_string.restype = ctypes.c_char_p
     lib.km_error_string.argtypes = [i]
+    if lib.km_merge_tile() != MERGE_TILE:
+        raise RuntimeError("csrc/merge_runs.cu TILE differs from "
+                           "_build.MERGE_TILE")
     return lib

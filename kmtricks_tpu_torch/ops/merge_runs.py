@@ -14,7 +14,7 @@ sort of the concatenation, bit for bit.
 
 :func:`merge_sorted_runs_torch` is the plain PyTorch version;
 :func:`merge_sorted_runs` runs it for CPU tensors and the hand-written CUDA
-kernel of ``csrc/merge_runs.cu`` for CUDA tensors (K4 with a payload, K3
+kernels of ``csrc/merge_runs.cu`` for CUDA tensors (K4 with a payload, K3
 without), as a tree of pairwise merges. It never falls back from one to
 the other.
 """
@@ -23,10 +23,11 @@ from __future__ import annotations
 
 import torch
 
-from kmtricks_tpu_torch._build import merge_runs_lib
+from kmtricks_tpu_torch._build import MERGE_TILE, merge_runs_lib
 
-# kernel launches, counted where the wrapper launches its CUDA kernel
-LAUNCHES = {"K3": 0, "K4": 0}
+# kernel launches, counted where the wrapper launches them: each pairwise
+# merge is one partition launch (``*_split``) and one merge launch
+LAUNCHES = {"K3": 0, "K4": 0, "K3_split": 0, "K4_split": 0}
 
 
 def merge_sorted_runs_torch(runs):
@@ -72,34 +73,52 @@ def _check_runs(runs):
 
 def merge_sorted_runs(runs):
     """Dispatch on the runs' device: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors (never one for the other). Same signature
-    and output as :func:`merge_sorted_runs_torch`."""
+    CUDA kernels for CUDA tensors (never one for the other). Same
+    signature and output as :func:`merge_sorted_runs_torch`."""
     dev = _check_runs(runs)
     if dev.type == "cpu":
         return merge_sorted_runs_torch(runs)
     if dev.type != "cuda":
         raise NotImplementedError(f"merge_sorted_runs: no kernel for {dev}")
-    return merge_sorted_runs_cuda(runs)
+    return _merge_tree_cuda(runs, dev)
 
 
 def merge_sorted_runs_cuda(runs):
-    """R runs merged as a tree of pairwise kernel merges of neighbours, so
-    the earlier run is always A and ties keep run order. Runs on the
-    current CUDA stream, no synchronisation."""
-    _check_runs(runs)
+    """The CUDA kernels on CUDA runs (see :func:`merge_sorted_runs`)."""
+    dev = _check_runs(runs)
+    if dev.type != "cuda":
+        raise ValueError(f"merge_sorted_runs_cuda: runs on {dev}")
+    return _merge_tree_cuda(runs, dev)
+
+
+def _merge_tree_cuda(runs, dev):
+    """R checked runs merged as a tree of pairwise kernel merges of
+    neighbours, so the earlier run is always A and ties keep run order.
+    Runs on the current CUDA stream, no synchronisation."""
     level = list(runs)
-    while len(level) > 1:
-        nxt = [_merge_two_cuda(level[i], level[i + 1])
-               for i in range(0, len(level) - 1, 2)]
-        if len(level) % 2:
-            nxt.append(level[-1])
-        level = nxt
+    if len(level) > 1:
+        lib = merge_runs_lib()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with torch.cuda.device(dev):
+            while len(level) > 1:
+                nxt = [_merge_two_cuda(level[i], level[i + 1], lib, stream)
+                       for i in range(0, len(level) - 1, 2)]
+                if len(level) % 2:
+                    nxt.append(level[-1])
+                level = nxt
     return tuple(level[0][0]), level[0][1]
 
 
-def _merge_two_cuda(a, b):
-    """One launch of the merge kernel: run ``a`` then run ``b`` (ties to
-    ``a``) -> (words, payload), exactly sized."""
+def split_scratch(n: int, dev) -> torch.Tensor:
+    """The partition's output: the merge-path split at each of the
+    ceil(n / MERGE_TILE) + 1 tile boundaries of an n-element merge."""
+    return torch.empty(-(-n // MERGE_TILE) + 1, dtype=torch.int64,
+                       device=dev)
+
+
+def _merge_two_cuda(a, b, lib, stream):
+    """One partition launch and one merge launch: run ``a`` then run ``b``
+    (ties to ``a``) -> (words, payload), exactly sized."""
     (aw, ap), (bw, bp) = a, b
     nw = len(aw)
     na, nb = aw[0].shape[0], bw[0].shape[0]
@@ -112,19 +131,20 @@ def _merge_two_cuda(a, b):
                for _ in range(nw))
     op = None if ap is None else torch.empty(na + nb, dtype=torch.int64,
                                              device=dev)
+    splits = split_scratch(na + nb, dev)    # referenced until after launch
 
     def ptrs(words, payload):
         """Two word pointers (the second None for one word), payload's."""
         return ([w.data_ptr() for w in words] + [None])[:2] + [
             None if payload is None else payload.data_ptr()]
 
-    lib = merge_runs_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.km_merge_runs(nw, *ptrs(aw, ap), na, *ptrs(bw, bp), nb,
-                                *ptrs(ow, op), stream)
+    err = lib.km_merge_runs(nw, *ptrs(aw, ap), na, *ptrs(bw, bp), nb,
+                            *ptrs(ow, op), splits.data_ptr(), splits.numel(),
+                            stream)
     if err:
         raise RuntimeError(f"merge_runs launch failed: "
                            f"{lib.km_error_string(err).decode()}")
-    LAUNCHES["K4" if op is not None or nw > 1 else "K3"] += 1
+    kern = "K4" if op is not None or nw > 1 else "K3"
+    LAUNCHES[kern] += 1
+    LAUNCHES[f"{kern}_split"] += 1
     return ow, op
