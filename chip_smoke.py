@@ -545,19 +545,18 @@ def split_runs(words, payload, parts, seed):
             for r in range(parts)]
 
 
-def ptxas_report(name: str, flags=(), src=None) -> dict:
+def ptxas_report(name: str) -> dict:
     """Registers, spills and static shared memory of each kernel of
-    ``csrc/<name>.cu`` (or ``src``) built with extra ``flags``, as
-    ``nvcc -Xptxas -v`` prints them."""
+    ``csrc/<name>.cu``, as ``nvcc -Xptxas -v`` prints them."""
     from kmtricks_tpu_torch import _build
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     out = os.path.join(_build.BUILD_DIR, f"ptxas_{name}_{os.getpid()}.so")
     try:
         res = subprocess.run(
-            [_build._nvcc()] + _build.NVCC_FLAGS + list(flags) + [
+            [_build._nvcc()] + _build.NVCC_FLAGS + [
                 "-Xptxas", "-v", "-o", out,
-                src or os.path.join(_build._CSRC, f"{name}.cu")],
+                os.path.join(_build._CSRC, f"{name}.cu")],
             capture_output=True, text=True, check=True)
     finally:
         if os.path.exists(out):
@@ -643,11 +642,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "sources": ["csrc/segscan.cu", "csrc/merge_runs.cu"],
           "merge_runs_ptxas": ptxas,
-          # merge_tiles' dynamic shared memory by arrays staged
-          # (key words + payload): 2 stages of TILE + 4 int64, 2 B/output
+          # merge_tiles' dynamic shared memory as the library launches it,
+          # by arrays staged (key words + payload)
           "merge_tiles_dynamic_smem_bytes": {
-              arrays: 2 * arrays * (_build.MERGE_TILE + 4) * 8
-              + 2 * _build.MERGE_TILE for arrays in (1, 2, 3)}})
+              arrays: _build.merge_runs_lib().km_merge_smem(arrays)
+              for arrays in (1, 2, 3)}})
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)

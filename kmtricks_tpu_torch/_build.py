@@ -81,6 +81,8 @@ def merge_runs_lib() -> ctypes.CDLL:
                                   i64, p]
     lib.km_merge_tile.restype = i
     lib.km_merge_tile.argtypes = []
+    lib.km_merge_smem.restype = i64
+    lib.km_merge_smem.argtypes = [i]
     lib.km_error_string.restype = ctypes.c_char_p
     lib.km_error_string.argtypes = [i]
     if lib.km_merge_tile() != MERGE_TILE:

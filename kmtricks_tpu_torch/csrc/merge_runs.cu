@@ -49,7 +49,7 @@
 // Shared memory per block: 2 stages x (NW + payload) arrays x (TILE + 16)
 // int64 + 2 * TILE bytes of positions: 72 KB for K3 (two blocks per SM,
 // held to two by registers), 201 KB for K4 with two words (one block).
-// The shape was chosen on the card with scripts/bench_merge_runs.py: at
+// The shape was chosen on the card by timing builds of other shapes: at
 // the engine's phase-A runs 512 threads of 8 beat 256 of 16 and 128 of 32
 // on K4 (fewer warps idle behind the merge's shared-memory latency) and
 // tied on K3; tiles of 2048 merged as fast but paid for twice the splits,
@@ -65,14 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef KM_MERGE_TILE
-#define KM_MERGE_TILE 4096
-#endif
-#ifndef KM_MERGE_ITEMS
-#define KM_MERGE_ITEMS 8
-#endif
-#define TILE KM_MERGE_TILE          // outputs per tile
-#define ITEMS KM_MERGE_ITEMS        // outputs per thread
+#define TILE 4096                   // outputs per tile
+#define ITEMS 8                     // outputs per thread
 #define THREADS (TILE / ITEMS)
 #define BUF (TILE + 16)             // staged elements per array and stage
 #define PART_THREADS 256            // partition: 8 warps, one split each
@@ -456,6 +450,12 @@ extern "C" const char* km_error_string(int err) {
 
 // outputs per tile: the wrapper sizes the split scratch from it
 extern "C" int km_merge_tile(void) { return TILE; }
+
+// dynamic shared memory of merge_tiles, in bytes, for `arrays` staged
+// arrays (key words plus payload)
+extern "C" int64_t km_merge_smem(int arrays) {
+  return (int64_t)smem_bytes(arrays);
+}
 
 // Merge run A (na elements) and run B (nb) into out (na + nb elements).
 // a1/b1/o1 are the second key words (ignored when nw == 1); ap/bp/op the

@@ -142,7 +142,7 @@ def test_wrapper_sizes_split_scratch_from_merge_tile():
     src = os.path.join(os.path.dirname(_build.__file__), "csrc",
                        "merge_runs.cu")
     with open(src) as f:
-        tile = int(re.search(r"#define KM_MERGE_TILE (\d+)", f.read())[1])
+        tile = int(re.search(r"#define TILE (\d+)", f.read())[1])
     assert tile == _build.MERGE_TILE
 
     class FakeLib:
