@@ -6,8 +6,9 @@ the CUDA toolkit:
 
     python3 chip_smoke.py
 
-It drives the port's main path (``pipeline --mode kmer:count:bin``) and
-checks it, in phases that each print one JSON line:
+It drives the port's main path (``pipeline``, every ``--mode``; the
+flagship ``hash:bf:bin`` at full size) and checks it, in phases that
+each print one JSON line:
 
 1. probe: torch, CUDA and nvcc versions, the card's name and power limit;
 2. build: compiles the CUDA kernels from ``kmtricks_tpu_torch/csrc``, with
@@ -42,7 +43,20 @@ checks it, in phases that each print one JSON line:
    banks, with the wall of each phase, chunk/run/fold counts, peak device
    memory and the launch counts; its matrices against the one-step path
    (--max-memory 65536) and against an engine run whose small table
-   budget forces two or more folds through K4.
+   budget forces two or more folds through K4;
+9. output parity: every --mode (hash and k-mer count formats; count, pa,
+   bf, bft, bfc; bin and text) on the phase-4 bank at k = 31, through the
+   one-step path and through the engine (``pa:bin`` by its pa-bits tail),
+   against the host stages byte for byte, fpr files and filters included;
+10. hash at full size: ``hash:bf:bin --bloom-size 10000000`` on the 8x
+   bank in one step against the host stages; ``hash:bft:bin`` and
+   ``kmer:pa:bin`` (pa-bits tail) on the 30x bank through the engine
+   against the one-step path; walls, peak device memory and launches of
+   each run; K4 on the hash engine run's phase-A runs (one key word and
+   the count) against its plain version, ten launches, and timed; the
+   device times of the window hash and the pa finalize (plain torch)
+   beside their bytes bounds; and the pa-bits tail against the dense tail
+   on the same ``kmer:pa:bin`` table, timed in turns, same files.
 
 Kernel times are device times: CUDA events around a batch of
 back-to-back calls enqueued behind a sleep kernel, divided by their
@@ -79,6 +93,13 @@ TPU_TILE = 8192           # the Pallas kernels' tile (pallas_segscan.TILE)
 REPEATS = 10              # kernel launches per phase-3 and phase-6 case
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 SMALL_MEM = 75            # MB: about ten engine chunks of the phase-4 bank
+# phase 9: every output mode (count format:mode:output) with its --bitw
+MODES = (("hash:count:bin", None), ("hash:count:text", None),
+         ("hash:pa:bin", None), ("hash:bf:bin", None), ("hash:bft:bin", None),
+         ("hash:bfc:bin", 2), ("kmer:pa:bin", None), ("kmer:pa:text", None),
+         ("kmer:count:text", None))
+BLOOM_SMALL = 1_000_000   # --bloom-size of phase 9
+BLOOM_FULL = 10_000_000   # phase 10: README's flagship hash:bf:bin line
 
 
 def emit(obj) -> None:
@@ -298,27 +319,32 @@ def check_kernels(inputs, rmin, save_if, cmax, S, reps=REPEATS):
 # ---------------------------------------------------------------------------
 
 def host_run(fof, run_dir, k, repart_from=None, max_memory=8192,
-             hist=False, soft_min="2"):
+             hist=False, soft_min="2", mode="kmer:count:bin",
+             bloom_size=None, bitw=None, stage_format=False):
     """The host stages one by one, from the port's copy of the JAX
     package's host layer (numpy, independent of the device path under
     test): config, repartition (host tally), per-sample count (with
-    histograms under ``hist``), soft-min, per-partition merge."""
-    from kmtricks_tpu_torch.runtime.pipeline import (
-        PipelineOptions, resolve_soft_min, stage_config, stage_count,
-        stage_merge, stage_repart)
+    histograms under ``hist``; k-mers or window hashes, as ``mode``
+    says), soft-min, per-partition merge, and under ``stage_format`` the
+    per-sample filters of ``bft``."""
+    from kmtricks_tpu_torch import constants as C
+    from kmtricks_tpu_torch.runtime import pipeline as P
 
-    opts = PipelineOptions(fof=fof, run_dir=run_dir, kmer_size=k,
-                           hard_min=2, soft_min=soft_min, share_min=2,
-                           recurrence_min=1, backend="host",
-                           repart_from=repart_from, max_memory_mb=max_memory,
-                           hist=hist)
-    kmdir, config = stage_config(opts)
-    rep = stage_repart(kmdir, config, opts)
+    opts = P.PipelineOptions(
+        fof=fof, run_dir=run_dir, kmer_size=k, hard_min=2,
+        soft_min=soft_min, share_min=2, recurrence_min=1, backend="host",
+        repart_from=repart_from, max_memory_mb=max_memory, hist=hist,
+        mode=mode, bloom_size=bloom_size or C.DEFAULT_BLOOM_SIZE,
+        bitw=bitw or C.DEFAULT_BITW)
+    kmdir, config = P.stage_config(opts)
+    rep = P.stage_repart(kmdir, config, opts)
     for s in range(len(kmdir.fof)):
-        stage_count(kmdir, config, rep, s, opts)
-    amin = resolve_soft_min(opts.soft_min, kmdir, len(kmdir.fof))
+        P.stage_count(kmdir, config, rep, s, opts)
+    amin = P.resolve_soft_min(opts.soft_min, kmdir, len(kmdir.fof))
     for p in range(config.nb_partitions):
-        stage_merge(kmdir, config, opts, p, amin)
+        P.stage_merge(kmdir, config, opts, p, amin)
+    if stage_format:
+        P.stage_format(kmdir, config, opts)
     return config.nb_partitions
 
 
@@ -329,6 +355,21 @@ def port_run(fof, run_dir, k, repart_from, extra=()):
     main(["pipeline", "--file", fof, "--run-dir", run_dir, "--kmer-size",
           str(k), "--repart-from", repart_from, "-v", "warning"] + OPTS
          + list(extra))
+
+
+def mode_args(mode, bloom_size, bitw=None):
+    """Command-line options of an output mode (``mode_subs`` says which
+    run-dir folders it writes)."""
+    args = ["--mode", mode, "--bloom-size", str(bloom_size)]
+    return args + (["--bitw", str(bitw)] if bitw else [])
+
+
+def mode_subs(mode):
+    """The run-dir folders a mode writes: matrices and merge infos, the
+    fpr files of bf, the per-sample filters of bft."""
+    out = mode.split(":")[1]
+    return (("matrices", "merge_infos") + (("fpr",) if out == "bf" else ())
+            + (("filters",) if out == "bft" else ()))
 
 
 def compare_run_dirs(a, b, subs=("matrices", "merge_infos")):
@@ -578,27 +619,262 @@ def ptxas_report(name: str) -> dict:
     return report
 
 
-def phase_a_runs(fof, run_dir, k, dev):
+def phase_a_runs(fof, run_dir, k, dev, repart_from=None, **kw):
     """The sorted pair runs that phase A of the engine merges for ``fof``
     at the default --max-memory (no fold: one run per chunk), made with
-    the engine's own chunk source and chunk step."""
+    the engine's own chunk source and chunk step (``kw``: further
+    options, such as a hash ``mode`` and its ``bloom_size``); and the
+    run's kmdir, config and options."""
     from kmtricks_tpu_torch.parallel.pipeline import build_chunk_pairs_step
+    from kmtricks_tpu_torch.runtime.device_pipeline import hash_window_bits
     from kmtricks_tpu_torch.runtime.pipeline import (
-        BYTES_PER_WINDOW, PipelineOptions, stage_config, stage_repart)
+        BYTES_PER_WINDOW, PipelineOptions, parse_mode, stage_config,
+        stage_repart)
     from kmtricks_tpu_torch.runtime.stream_engine import _chunk_source
 
-    opts = PipelineOptions(fof=fof, run_dir=run_dir, kmer_size=k)
+    opts = PipelineOptions(fof=fof, run_dir=run_dir, kmer_size=k,
+                           repart_from=repart_from, **kw)
+    if repart_from:
+        opts.nb_partitions = len(os.listdir(os.path.join(repart_from,
+                                                         "merge_infos")))
     kmdir, config = stage_config(opts)
     rep = stage_repart(kmdir, config, opts)
     gen, _rows = _chunk_source(
         kmdir, opts, k, int(opts.max_memory_mb * 1e6 / BYTES_PER_WINDOW),
         None, None, None, True)
+    cf = parse_mode(opts.mode)[0]
     step = build_chunk_pairs_step(k=k, m=config.minim_size,
                                   nsamp=len(kmdir.fof),
-                                  nb_parts=config.nb_partitions)
+                                  nb_parts=config.nb_partitions, mode=cf,
+                                  window_bits=hash_window_bits(kmdir, cf))
     table = torch.from_numpy(rep.table.astype(np.int32)).to(dev)
     return [step(*(torch.from_numpy(a).to(dev) for a in chunk), table)
-            for chunk in gen]
+            for chunk in gen], kmdir, config, opts
+
+
+def output_parity(fof, repart_from, SE) -> None:
+    """Phase 9: every output mode on the phase-4 bank at k = 31, through
+    the one-step path and through the engine (``SMALL_MEM``), against the
+    host stages byte for byte (fpr files and filters included)."""
+    for mode, bitw in MODES:
+        tag = mode.replace(":", "_")
+        host_rd = os.path.join(WORK, f"host_{tag}")
+        t0 = time.perf_counter()
+        host_run(fof, host_rd, 31, repart_from, mode=mode,
+                 bloom_size=BLOOM_SMALL, bitw=bitw,
+                 stage_format=mode == "hash:bft:bin")
+        res = {"phase": "output_parity", "mode": mode,
+               "host_s": time.perf_counter() - t0}
+        for branch, extra in (("one_step", []),
+                              ("engine", ["--max-memory", str(SMALL_MEM)])):
+            rd = os.path.join(WORK, f"port_{tag}_{branch}")
+            SE.last_run.clear()
+            t0 = time.perf_counter()
+            port_run(fof, rd, 31, host_rd,
+                     mode_args(mode, BLOOM_SMALL, bitw) + extra)
+            res[f"{branch}_s"] = time.perf_counter() - t0
+            stats = dict(SE.last_run)
+            if branch == "one_step" and stats:
+                raise AssertionError(f"{mode}: one-step run took the engine")
+            if branch == "engine":
+                tail = "pa_bits" if mode.endswith(":pa:bin") else "dense"
+                if stats.get("chunks", 0) < 5 or stats["tail"] != tail:
+                    raise AssertionError(f"{mode}: engine run {stats}")
+                res.update(chunks=stats["chunks"], tail=stats["tail"])
+            files, nbytes = compare_run_dirs(host_rd, rd, mode_subs(mode))
+            res[f"{branch}_files_identical"] = files
+            res["bytes"] = nbytes
+        emit(res)
+
+
+def timed_run(counters, SE, fof, run_dir, repart_from, extra):
+    """One port run through the CLI with the kernel counters set to 0
+    just before it: wall, peak device bytes, launches and engine stats."""
+    reset(*counters)
+    SE.last_run.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    port_run(fof, run_dir, 31, repart_from, extra)
+    torch.cuda.synchronize()
+    launches = {}
+    for c in counters:
+        launches.update(c)
+    return {"wall_s": time.perf_counter() - t0,
+            "peak_device_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches,
+            "engine": dict(SE.last_run)}
+
+
+def hash_full_size(fof_big, host_full, fof_e2e, eng_rd, S, MR, SE, dev,
+                   smi) -> dict:
+    """Phase 10: the flagship ``hash:bf:bin --bloom-size 10000000`` on the
+    8x bank in one step against the host stages; ``hash:bft:bin`` on the
+    30x bank through the engine against one step (filters included);
+    ``kmer:pa:bin`` on the 30x bank through the engine's pa-bits tail
+    against the one-step dense merge; then the device times of the two
+    plain-torch pieces of the slice, the window hash and the pa finalize,
+    beside their bytes bounds. Returns each run's launches."""
+    from kmtricks_tpu_torch.core import hashers
+    from kmtricks_tpu_torch.core.repartition import Repartition
+    from kmtricks_tpu_torch.ops.count_merge import stream_layout
+    from kmtricks_tpu_torch.ops.encode import encode_batch
+    from kmtricks_tpu_torch.ops.xxh64 import window_hash
+    from kmtricks_tpu_torch.parallel.pipeline import (
+        merge_finalize_bits, table_compact, table_sort_collapse)
+    from kmtricks_tpu_torch.runtime.device_pipeline import _load_global_batch
+    from kmtricks_tpu_torch.runtime.kmdir import KmDir
+    from kmtricks_tpu_torch.runtime.pipeline import PipelineOptions
+
+    counters = (S.LAUNCHES, MR.LAUNCHES)
+    bf = "hash:bf:bin"
+    host_rd = os.path.join(WORK, "host_full_hash_bf")
+    t0 = time.perf_counter()
+    host_run(fof_big, host_rd, 31, host_full, mode=bf, bloom_size=BLOOM_FULL)
+    host_s = time.perf_counter() - t0
+    port_rd = os.path.join(WORK, "port_full_hash_bf")
+    runs = {"hash:bf:bin 8x one step": timed_run(
+        counters, SE, fof_big, port_rd, host_full, mode_args(bf, BLOOM_FULL))}
+    bf_files, bf_bytes = compare_run_dirs(host_rd, port_rd, mode_subs(bf))
+
+    # the 30x bank: engine (default --max-memory) against one step
+    nparts = len(os.listdir(os.path.join(eng_rd, "merge_infos")))
+    cmp = {}
+    for mode in ("hash:bft:bin", "kmer:pa:bin"):
+        rds = []
+        for branch, extra in (("engine", []),
+                              ("one step", ["--max-memory", "65536"])):
+            rds.append(os.path.join(WORK, f"{mode[:8]}_{branch[:3]}"))
+            runs[f"{mode} 30x {branch}"] = timed_run(
+                counters, SE, fof_e2e, rds[-1], eng_rd,
+                mode_args(mode, BLOOM_FULL) + extra
+                + ["--nb-partitions", str(nparts)])
+        cmp[mode] = compare_run_dirs(rds[1], rds[0], mode_subs(mode))
+    for name, r in runs.items():
+        l, eng = r["launches"], r["engine"]
+        if "engine" in name:
+            tail = "pa_bits" if ":pa:" in name else "dense"
+            if not (l["K4"] > 0 and l["K4_split"] == l["K4"]
+                    and eng.get("tail") == tail):
+                raise AssertionError(f"{name}: {l} {eng}")
+        elif eng or not (l["bwd"] > 0 and l["fwd"] > 0):
+            raise AssertionError(f"{name} skipped the one-step path: {l}")
+
+    # the window hash on the 8x bank's windows, against the numpy golden
+    kmdir = KmDir.init(port_rd)
+    opts = PipelineOptions(fof=kmdir.fof_path, run_dir=port_rd, kmer_size=31)
+    batch, lengths, _sarr = _load_global_batch(kmdir, opts)
+    table = Repartition.load(kmdir.repart_path).table
+    hw = hashers.HashWindow.load(kmdir.hash_win)
+    wb = hw.window_size_bits
+    keys, parts, _valid = encode_batch(
+        torch.from_numpy(batch).to(dev), torch.from_numpy(lengths).to(dev),
+        torch.from_numpy(table.astype(np.int32)).to(dev), 31, hw.minim_size)
+    del batch, _valid
+    got = window_hash(keys[:256], parts[:256], wb).cpu().numpy()
+    exp = hashers.window_hash(
+        keys[:256].reshape(-1, 1).cpu().numpy().view(np.uint64),
+        parts[:256].reshape(-1).cpu().numpy(), wb)
+    if not np.array_equal(got.reshape(-1).view(np.uint64), exp):
+        raise AssertionError("window_hash differs from the numpy golden")
+    windows = keys.numel()
+    hash_ms = device_ms(lambda: window_hash(keys, parts, wb))
+    del keys, parts
+    torch.cuda.empty_cache()
+
+    # K4 on the phase-A runs of the hash engine run (one key word + the
+    # count), against its plain version, and its device time
+    hruns = phase_a_runs(fof_e2e, os.path.join(WORK, "runs_hash"), 31, dev,
+                         repart_from=eng_rd, mode="hash:bft:bin",
+                         bloom_size=BLOOM_FULL)[0]
+    k4h = lambda: MR.merge_sorted_runs_cuda(hruns)  # noqa: E731
+    hentries = sum(int(c.shape[0]) for _w, c in hruns)
+    hnw = len(hruns[0][0])
+    k4_hash = {
+        "phase_a_runs": [int(c.shape[0]) for _w, c in hruns],
+        "key_words": hnw, "max_abs_err": merge_err(hruns, MR, REPEATS),
+        "device_ms_3_repeats": device_ms(k4h), "call_ms": cuda_ms(k4h),
+        "plain_ms": cuda_ms(lambda: MR.merge_sorted_runs_torch(hruns)),
+        # int64 key words and the count, read once and written once
+        "bound_ms": hentries * 2 * 8 * (hnw + 1) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes"}
+    k4_hash["ms"] = median(k4_hash["device_ms_3_repeats"])
+    del hruns
+    torch.cuda.empty_cache()
+
+    # the pa finalize on the 30x bank's phase-B table (the kmer:pa:bin
+    # engine run's options)
+    pair_runs, kmdir, config, opts = phase_a_runs(
+        fof_e2e, os.path.join(WORK, "runs_pa"), 31, dev, repart_from=eng_rd,
+        mode="kmer:pa:bin", hard_min=2, soft_min="2", share_min=2,
+        recurrence_min=1)
+    nsamp = len(kmdir.fof)
+    ws, cnt = table_sort_collapse(pair_runs)
+    del pair_runs
+    rows, pre, part_rows, _maxc, _npres = table_compact(
+        ws, cnt, layout=stream_layout(31, config.nb_partitions, nsamp),
+        nsamp=nsamp, hard_min=2, nb_parts=config.nb_partitions)
+    del ws, cnt
+    bounds = torch.zeros(config.nb_partitions + 1, dtype=torch.int64,
+                         device=dev)
+    torch.cuda.synchronize()
+    torch.cumsum(part_rows, 0, out=bounds[1:])
+    two = torch.full((nsamp,), 2, dtype=torch.int64, device=dev)
+    count_max = (1 << (8 * config.count_bytes)) - 1
+    fin = lambda: merge_finalize_bits(  # noqa: E731
+        pre, two, two, bounds, rmin=1, save_if=2, count_max=count_max)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    packed, keep, stats = fin()
+    torch.cuda.synchronize()
+    fin_peak = torch.cuda.max_memory_allocated() - base
+    fin_ms = device_ms(fin)
+    # pre read once; bits, keep flags and statistics written once
+    fin_bytes = (pre.numel() * 4 + packed.numel() + keep.numel()
+                 + stats.numel() * 8)
+    del packed, keep, stats
+
+    # both engine tails on this table, in turns: the pa-bits tail and the
+    # dense tail write the same files
+    dense_root = kmdir.root + "_dense"
+    shutil.copytree(kmdir.root, dense_root)
+    kmdir_dense = KmDir.init(dense_root)
+    amin_np = np.full(nsamp, 2, np.uint32)
+    hard_np = np.asarray(kmdir.fof.abundance_mins(opts.hard_min), np.uint32)
+    tails = {"pa_bits": [], "dense": []}
+    for _ in range(2):
+        for tail in tails:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if tail == "pa_bits":
+                SE._fetch_merge_write_pa_bits(
+                    kmdir, config, opts, "kmer", rows, pre, part_rows,
+                    amin_np, hard_np, count_max)
+            else:
+                SE._fetch_merge_write(
+                    kmdir_dense, config, opts, "kmer", rows, pre, part_rows,
+                    amin_np, hard_np, count_max, False)
+            tails[tail].append(time.perf_counter() - t0)
+    tail_files = compare_run_dirs(kmdir.root, dense_root)
+    emit({"phase": "hash_full_size", "bloom_size": BLOOM_FULL,
+          "runs": runs, "host_stages_hash_bf_s": host_s,
+          "hash_bf_files_identical": bf_files, "hash_bf_bytes": bf_bytes,
+          "engine_vs_one_step_files_bytes": cmp,
+          "window_hash": {"windows": windows, "window_bits": wb,
+                          "device_ms_3_repeats": hash_ms,
+                          "bound_ms": windows * 20 / HBM_BYTES_PER_S * 1e3,
+                          "bound_by": "bytes"},
+          "k4_hash_phase_a": k4_hash,
+          "pa_finalize": {"rows": int(pre.shape[0]), "samples": nsamp,
+                          "device_ms_3_repeats": fin_ms,
+                          "peak_extra_device_bytes": fin_peak,
+                          "bound_ms": fin_bytes / HBM_BYTES_PER_S * 1e3,
+                          "bound_by": "bytes"},
+          "kmer_pa_tails_same_table_s": tails,
+          "kmer_pa_tails_files_bytes": tail_files,
+          "gpu": smi})
+    return {name: r["launches"] for name, r in runs.items()}, k4_hash
 
 
 def reset(*counters) -> None:
@@ -750,7 +1026,7 @@ def main() -> int:
         merrs = {"K3": 0, "K4": 0}
         ncases = 0
         runs4 = phase_a_runs(fof_e2e, os.path.join(WORK, "runs_e2e"), 31,
-                             dev)
+                             dev)[0]
         runs3 = [((w[0],), None) for w, _c in runs4]
         for runs in list(merge_cases(dev)) + list(
                 tile_edge_merge_cases(dev, _build.MERGE_TILE)) + [runs4,
@@ -874,6 +1150,7 @@ def main() -> int:
         if folds["folds"] < 2:
             raise AssertionError(f"expected two or more folds: {folds}")
         fold_files, fold_bytes = compare_run_dirs(eng_rd, fold_rd)
+        shutil.rmtree(fold_rd)
         emit({"phase": "engine_full_size", "bank_gen_s": e2e_gen_s,
               "main_path_wall_s": eng_s, "phase_walls_s": eng["walls_s"],
               # config, repartition (host tally) and bank estimates
@@ -893,6 +1170,14 @@ def main() -> int:
               "forced_fold_k4_split_launches": MR.LAUNCHES["K4_split"],
               "forced_fold_files_identical": fold_files,
               "forced_fold_bytes": fold_bytes, "gpu": smi})
+
+        # 9. every output mode on both branches, against the host stages
+        output_parity(fof_small, os.path.join(WORK, "host_k31"), SE)
+
+        # 10. the hash paths and the pa-bits tail at full size
+        hash_launches, k4_hash = hash_full_size(
+            fof_big, os.path.join(WORK, "host_full"), fof_e2e, eng_rd, S, MR,
+            SE, dev, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -903,16 +1188,27 @@ def main() -> int:
                              f"{jax_mods[:5]}")
     src = "kmtricks_tpu_torch/csrc/segscan.cu"
     msrc = "kmtricks_tpu_torch/csrc/merge_runs.cu"
+    # launches on each path that runs the kernel: phase 5 or 8, then 10
+    by_path = {
+        name: {"kmer:count:bin 8x one step": launches[name]}
+        for name in ("bwd", "fwd")}
+    for name in ("K3", "K4"):
+        by_path[name] = {"kmer:count:bin 30x engine": eng_launches[name]}
+    for path, counts in hash_launches.items():
+        for name in ("bwd", "fwd") if "one step" in path else ("K3", "K4"):
+            by_path[name][path] = counts[name]
     emit({"kernels": [
         {"name": "segscan_bwd (K1)", "route": "cuda", "source": src,
          "replaces": "kmtricks_tpu/ops/pallas_segscan.py:123",
-         "launches": launches["bwd"], "max_abs_err": errs[0],
+         "launches": launches["bwd"],
+         "launches_by_path": by_path["bwd"], "max_abs_err": errs[0],
          "ms": times["K1"], "call_ms": times["K1_call"],
          "plain_ms": times["K1_plain"],
          "bound_ms": bound["K1"], "bound_by": "bytes", "library_ms": None},
         {"name": "segscan_fwd (K2)", "route": "cuda", "source": src,
          "replaces": "kmtricks_tpu/ops/pallas_segscan.py:176",
-         "launches": launches["fwd"], "max_abs_err": errs[1],
+         "launches": launches["fwd"],
+         "launches_by_path": by_path["fwd"], "max_abs_err": errs[1],
          "ms": times["K2"], "call_ms": times["K2_call"],
          "plain_ms": times["K2_plain"],
          "bound_ms": bound["K2"], "bound_by": "bytes", "library_ms": None},
@@ -921,6 +1217,7 @@ def main() -> int:
         {"name": "merge_runs one word (K3)", "route": "cuda",
          "source": msrc, "replaces": "kmtricks_tpu/ops/pallas_sort.py:136",
          "launches": eng_launches["K3"],
+         "launches_by_path": by_path["K3"],
          "partition_launches": eng_launches["K3_split"],
          "max_abs_err": merrs["K3"],
          "ms": mtimes["K3"], "call_ms": mtimes["K3_call"],
@@ -930,11 +1227,15 @@ def main() -> int:
         {"name": "merge_runs words + count (K4)", "route": "cuda",
          "source": msrc, "replaces": "kmtricks_tpu/ops/pallas_sort.py:318",
          "launches": eng_launches["K4"],
+         "launches_by_path": by_path["K4"],
          "partition_launches": eng_launches["K4_split"],
-         "max_abs_err": merrs["K4"],
+         "max_abs_err": max(merrs["K4"], k4_hash["max_abs_err"]),
          "ms": mtimes["K4"], "call_ms": mtimes["K4_call"],
          "plain_ms": mtimes["K4_plain"],
-         "bound_ms": mbound["K4"], "bound_by": "bytes", "library_ms": None},
+         "bound_ms": mbound["K4"], "bound_by": "bytes", "library_ms": None,
+         # the hash engine's form: one key word + the count
+         "hash_phase_a": {key: k4_hash[key] for key in (
+             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

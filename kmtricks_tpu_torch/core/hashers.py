@@ -173,6 +173,13 @@ class HashWindow:
         return (partition + 1) * self.window_size_bits - 1
 
 
+def window_hash(words: np.ndarray, partitions: np.ndarray,
+                window_bits: int) -> np.ndarray:
+    """The counting hash: XXH64(kmer) % window + window * partition."""
+    h = xxh64_words(words)
+    return h % _u(window_bits) + _u(window_bits) * partitions.astype(np.uint64)
+
+
 def bloom_fp(m: int, n: int, k: int = 1) -> float:
     """Bloom filter false-positive rate (utils.hpp:239-243)."""
     import math

@@ -300,6 +300,16 @@ def write_bit_vector_file(path: str, bit_bytes: bytes | np.ndarray, bits: int,
 # .cmbf — vertical BF matrix (vector_matrix_file.hpp)
 # ---------------------------------------------------------------------------
 
+@dataclass
+class VectorMatrixFileInfo:
+    bits: int          # row width in bits (= nb samples, or samples*w for cbf)
+    id: int
+    partition: int
+    first: int         # lower hash bound of the window
+    window: int        # number of rows (upper-lower+1)
+    compressed: bool
+
+
 def write_vector_matrix_file(path: str, rows: np.ndarray, bits: int,
                              sample_id: int, partition: int, first: int,
                              window: int, compressed: bool = False) -> None:
@@ -314,6 +324,17 @@ def write_vector_matrix_file(path: str, rows: np.ndarray, bits: int,
                                   sample_id, partition))
         f.write(lz4.compress(rows.tobytes()) if compressed
                 else memoryview(rows).cast("B"))
+
+
+def read_vector_matrix_payload(path: str):
+    """Raw payload variant: needed for transposed (bft) matrices whose row
+    width is ROUND_UP(window,8)/8 bytes, not nbytes(header.bits)."""
+    with open(path, "rb") as f:
+        compressed, (bits, first, window, sid, part) = _read_header(
+            f, C.MAGIC_BITMATRIX, "<IQQII")
+        payload = _payload(f, compressed)
+    info = VectorMatrixFileInfo(bits, sid, part, first, window, compressed)
+    return info, np.frombuffer(payload, dtype=np.uint8)
 
 
 # ---------------------------------------------------------------------------

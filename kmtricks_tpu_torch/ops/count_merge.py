@@ -1,10 +1,10 @@
 """Fused count+merge: raw k-mer occurrences -> counted, merged rows.
 
 Counterpart of ``kmtricks_tpu/ops/count_merge.py`` (packed path, k-mer
-mode, k <= 32): one sort of (partition, key, sample) occurrence tuples,
-then the segment stage (:mod:`kmtricks_tpu_torch.ops.segscan`) turns the
-sorted runs into per-sample counts, hard-min, solid/rescue verdicts and
-matrix rows.
+and hash mode, k <= 32): one sort of (partition, key, sample) occurrence
+tuples, then the segment stage (:mod:`kmtricks_tpu_torch.ops.segscan`)
+turns the sorted runs into per-sample counts, hard-min, solid/rescue
+verdicts and matrix rows.
 
 Sort words are int64 with the top bit clear, fields packed most
 significant first (partition | key | sample); invalid entries take the
@@ -13,7 +13,11 @@ the validity of a sorted position is its rank against the valid count.
 Layout names follow the JAX package: "k2.<pb>.<kb>" packs into one word
 when part_bits + key_bits + samp_bits <= 63; "k3" (k <= 32, partitions
 <= 16 bits, samples <= 15 bits) takes two words sorted by a stable
-two-pass sort, least significant word first.
+two-pass sort, least significant word first. Window hashes (hash mode)
+embed their partition (hash = XXH64 % window + window * partition), so
+the partition rides no field: "h1" and "h2" (the JAX package's one- and
+two-u32 hash layouts) are both ONE int64 word (hash << samp_bits | sample)
+here, and the partition is decoded as hash // window.
 """
 
 from __future__ import annotations
@@ -31,34 +35,54 @@ def _samp_bits(nsamp: int) -> int:
     return max(1, (nsamp - 1).bit_length())
 
 
-def packed_layout(nsamp: int, key_bits: int, part_bits: int) -> str:
-    """The JAX package's packed layout for k-mer keys of ``key_bits``
-    (2k, k <= 32) and ``part_bits`` partition bits; raises for layouts
-    this package has not ported."""
+def hash_key_bits(window_bits: int, nb_parts: int) -> int:
+    """Bits of a window hash, which is below window_bits * nb_parts."""
+    return (window_bits * nb_parts - 1).bit_length()
+
+
+def packed_layout(nsamp: int, key_bits: int, part_bits: int | None,
+                  part_follows_keys: bool = False) -> str:
+    """The JAX package's packed layout for keys of ``key_bits`` (2k k-mer
+    bits, k <= 32, with ``part_bits`` partition bits; or window hashes,
+    ``part_follows_keys``); raises for layouts this package has not
+    ported."""
     sb = _samp_bits(nsamp)
+    if part_follows_keys:
+        if key_bits + sb <= 63:
+            return "h1" if 1 + key_bits + sb <= 32 else "h2"
+        raise NotImplementedError(
+            f"{key_bits}-bit window hashes with {nsamp} samples do not pack "
+            "into one sort word; the JAX package's generic sort path is "
+            "ROADMAP slice 4 of the port")
     if 1 + part_bits + key_bits + sb <= 64:
         return f"k2.{part_bits}.{key_bits}"
     if sb <= 15 and part_bits <= 16:
         return "k3"
     raise NotImplementedError(
         f"no ported sort layout for {nsamp} samples, {part_bits} partition "
-        f"bits and {key_bits} key bits")
+        f"bits and {key_bits} key bits (the kw and generic layouts are "
+        "ROADMAP slice 4 of the port)")
 
 
-def stream_layout(k: int, nb_parts: int, nsamp: int) -> str:
+def stream_layout(k: int, nb_parts: int, nsamp: int, mode: str = "kmer",
+                  window_bits: int | None = None) -> str:
     """The streaming engine's packed layout (counterpart of
-    ``kmtricks_tpu/parallel/pipeline.py::stream_layout``, k-mer mode,
-    k <= 32): k2 or k3 from :func:`packed_layout`, which raises for
-    layouts that do not pack (the JAX package takes ``stage_mesh_chunked``
-    for those)."""
+    ``kmtricks_tpu/parallel/pipeline.py::stream_layout``, k <= 32): from
+    :func:`packed_layout`, which raises for layouts that do not pack (the
+    JAX package takes ``stage_mesh_chunked`` for those)."""
+    if mode == "hash":
+        return packed_layout(nsamp, hash_key_bits(window_bits, nb_parts),
+                             None, part_follows_keys=True)
     return packed_layout(nsamp, 2 * k, (nb_parts - 1).bit_length())
 
 
 def _layout_words(layout: str) -> int:
-    """The JAX package's u32 word count of the layout (2 for k2, 3 for
-    k3), which its table budget is written in; the port's int64 layouts
-    take one word fewer."""
-    if layout.startswith("k2."):
+    """The JAX package's u32 word count of the layout (1 for h1, 2 for h2
+    and k2, 3 for k3), which its table budget is written in; the port's
+    int64 layouts take one word (k3: two)."""
+    if layout == "h1":
+        return 1
+    if layout == "h2" or layout.startswith("k2."):
         return 2
     if layout == "k3":
         return 3
@@ -72,12 +96,15 @@ def _k2_params(layout: str):
 
 def pack_words(layout: str, part, keys, samp, valid, nsamp: int):
     """Pack (N,) occurrences into the layout's int64 sort words (most
-    significant first). ``keys`` are int64 canonical k-mers; invalid
-    entries take the INT64_MAX sentinel (``valid=None``: all valid)."""
+    significant first). ``keys`` are int64 canonical k-mers or window
+    hashes (``part`` unused); invalid entries take the INT64_MAX sentinel
+    (``valid=None``: all valid)."""
     sb = _samp_bits(nsamp)
     part = part.to(torch.int64)
     samp = samp.to(torch.int64)
-    if layout.startswith("k2."):
+    if layout in ("h1", "h2"):
+        words = ((keys << sb) | samp,)
+    elif layout.startswith("k2."):
         _pb, kb = _k2_params(layout)
         words = ((part << (kb + sb)) | (keys << sb) | samp,)
     elif layout == "k3":
@@ -99,16 +126,23 @@ def sort_packed(layout: str, words):
     return hi_s, lo_s[perm2]
 
 
-def unpack_sorted(layout: str, ws, nsamp: int, n_valid):
+def unpack_sorted(layout: str, ws, nsamp: int, n_valid,
+                  window_bits: int | None = None):
     """Sorted words -> (part_s int32, key_s int64, samp_s int32, valid_s,
     occ_d, kd). Fields are 0 at invalid positions; ``occ_d``/``kd`` are the
     (N-1,) changes of adjacent entries at (key, sample) and key
-    granularity, computed from the decoded fields."""
+    granularity, computed from the decoded fields. Hash layouts decode the
+    partition as key // ``window_bits``."""
     sb = _samp_bits(nsamp)
     n = ws[0].shape[0]
     valid_s = torch.arange(n, device=ws[0].device) < n_valid
     smask = (1 << sb) - 1
-    if layout.startswith("k2."):
+    if layout in ("h1", "h2"):
+        (w,) = ws
+        samp = w & smask
+        key = w >> sb
+        part = key // window_bits
+    elif layout.startswith("k2."):
         _pb, kb = _k2_params(layout)
         (w,) = ws
         samp = w & smask
@@ -145,10 +179,14 @@ def _thresholds(vec, samp_s, default: int):
 def count_merge_keys(part, keys, samp, valid, amin_vec, *, nsamp: int,
                      hard_min: int, rmin: int, save_if: int,
                      count_max: int = 0xFFFFFFFF, key_bits: int,
-                     part_bits: int, hard_min_vec=None):
+                     part_bits: int | None = None, hard_min_vec=None,
+                     part_follows_keys: bool = False,
+                     window_bits: int | None = None):
     """Count and merge raw occurrences in one sort + segment stage.
 
-    part (N,) int32, keys (N,) int64 canonical k-mers, samp (N,) int32,
+    part (N,) int32, keys (N,) int64 canonical k-mers (or window hashes of
+    ``key_bits`` bits with ``part_follows_keys`` and ``window_bits``; the
+    partition is then decoded from the hash), samp (N,) int32,
     valid (N,) bool, amin_vec (nsamp,) int32 soft-min thresholds; optional
     per-sample int32 ``hard_min_vec`` (both as
     :func:`~kmtricks_tpu_torch.convert.from_jax_inputs` makes them, u32
@@ -158,11 +196,11 @@ def count_merge_keys(part, keys, samp, valid, amin_vec, *, nsamp: int,
     the JAX ``count_merge_keys`` outputs without the statistics, which the
     compacted path rebuilds on the host.
     """
-    layout = packed_layout(nsamp, key_bits, part_bits)
+    layout = packed_layout(nsamp, key_bits, part_bits, part_follows_keys)
     words = pack_words(layout, part, keys, samp, valid, nsamp)
     ws = sort_packed(layout, words)
     part_s, key_s, samp_s, valid_s, occ_d, kd = unpack_sorted(
-        layout, ws, nsamp, valid.sum())
+        layout, ws, nsamp, valid.sum(), window_bits)
     ones = torch.ones(1, dtype=torch.bool, device=kd.device)
     key_diff = torch.cat([ones, kd])
     occ_diff = torch.cat([ones, occ_d])

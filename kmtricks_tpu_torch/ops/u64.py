@@ -8,7 +8,9 @@ which needs three corrections against PyTorch's signed semantics:
   (:func:`shr`); ``uint64 >>`` is not implemented at all;
 * ``torch.sort`` and comparisons are signed, so unsigned order flips
   bit 63 first (:func:`flip`);
-* ``int64 <<`` and ``*`` wrap mod 2^64, as u64 does.
+* ``int64 <<``, ``+`` and ``*`` wrap mod 2^64, as u64 does;
+* ``%`` and ``//`` are signed and floor-based, so the unsigned remainder
+  (:func:`mod_const`) works on the low 63 bits and adds bit 63 back.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 
 SIGN = -(1 << 63)          # bit 63 as an int64 value
+INT64_MAX = (1 << 63) - 1
 
 
 def s64(c: int) -> int:
@@ -39,3 +42,27 @@ def flip(x: torch.Tensor) -> torch.Tensor:
 def umin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise unsigned minimum of int64 bit patterns."""
     return torch.where(flip(a) < flip(b), a, b)
+
+
+def rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Rotate int64 bit patterns left by a constant 0 < r < 64."""
+    return (x << r) | shr(x, 64 - r)
+
+
+def mul_const(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c`` mod 2^64 for an unsigned 64-bit constant ``c``."""
+    return x * s64(c)
+
+
+def mod_const(x: torch.Tensor, w: int) -> torch.Tensor:
+    """Unsigned ``x % w`` of int64 bit patterns for a constant
+    1 <= w < 2^63 (counterpart of the JAX package's Barrett ``mod_const``).
+
+    The low 63 bits are non-negative, so the signed ``%`` is exact on
+    them; bit 63 adds ``2^63 % w``, folded back by a compare and subtract
+    (``a + b`` may pass 2^63 when w > 2^62)."""
+    if not 1 <= w <= INT64_MAX:
+        raise ValueError(f"mod_const: modulus {w} out of [1, 2^63)")
+    a = (x & INT64_MAX) % w
+    b = torch.where(x < 0, (1 << 63) % w, 0)
+    return torch.where(a >= w - b, a - (w - b), a + b)

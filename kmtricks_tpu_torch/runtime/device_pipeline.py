@@ -2,8 +2,9 @@
 
 Counterpart of ``kmtricks_tpu/runtime/device_pipeline.py``:
 
-* :func:`stage_count_merge` (``stage_mesh_count_merge`` on one device):
-  all samples' reads form one (B, L) batch, the fused step
+* :func:`stage_count_merge` (``stage_mesh_count_merge`` on one device,
+  k-mer or hash keys): all samples' reads form one (B, L) batch, the
+  fused step
   (:mod:`kmtricks_tpu_torch.parallel.pipeline`) counts and merges them
   into dense rows on the device, and the host rebuilds rescue/keep/
   statistics per partition (``host/ops.py::merge_dense``) and writes them
@@ -25,6 +26,7 @@ import threading
 import numpy as np
 
 from kmtricks_tpu_torch.convert import from_jax_inputs
+from kmtricks_tpu_torch.core.hashers import HashWindow
 from kmtricks_tpu_torch.host import ops as hops
 from kmtricks_tpu_torch.io import sequences as seqio
 from kmtricks_tpu_torch.parallel.pipeline import build_single_chip_step
@@ -268,13 +270,32 @@ def rows_budget(nsamp: int, max_memory_mb: int) -> int:
     return min(rows, _pow2ceil((1 << 31) // max(1, nsamp)) // 2)
 
 
+def fetch_row_keys(rows, cf: str) -> np.ndarray:
+    """The key column of compacted rows ((nrows, 2) int64 of [key,
+    partition] on the device) on the host, in merge_dense's layout:
+    (nrows, 1) u64 k-mers, or (nrows,) u64 window hashes in hash mode
+    (counterpart of the JAX engine's ``_decode_block_keys``; 2-D hash keys
+    would give the bf and hash writers wrong bytes)."""
+    keys = rows[:, 0].contiguous().cpu().numpy().view(np.uint64)
+    return keys if cf == "hash" else keys.reshape(-1, 1)
+
+
+def hash_window_bits(kmdir, cf: str) -> int | None:
+    """The window size in bits from the run's hash.info (hash mode)."""
+    if cf != "hash":
+        return None
+    return HashWindow.load(kmdir.hash_win).window_size_bits
+
+
 def stage_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
                       batch, lengths, sarr, device) -> None:
     """Count and merge the loaded collection on ``device`` in one step and
-    write every partition's matrix and merge_info."""
+    write every partition's outputs."""
     # imported here: runtime.pipeline imports this module
-    from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
+    from kmtricks_tpu_torch.runtime.pipeline import (
+        parse_mode, write_merge_outputs)
 
+    cf = parse_mode(opts.mode)[0]
     nsamp = len(kmdir.fof)
     hard_mins = kmdir.fof.abundance_mins(opts.hard_min)
     # per-sample `! amin` fof overrides ride the fused step directly
@@ -288,16 +309,17 @@ def stage_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
         rmin=opts.recurrence_min, save_if=opts.share_min,
         count_max=(1 << (8 * config.count_bytes)) - 1,
         hard_min_vec=args[5], mmer_canonical=config.mmer_scheme != "forward",
-        max_rows=rows_budget(nsamp, opts.max_memory_mb))
+        max_rows=rows_budget(nsamp, opts.max_memory_mb), mode=cf,
+        window_bits=hash_window_bits(kmdir, cf))
     log.info("device step: %d reads x %d (windows %d) on %s",
              batch.shape[0], batch.shape[1],
              batch.shape[0] * (batch.shape[1] - config.kmer_size + 1), device)
     rows, pre, nrows, _maxc, _npres = step(*args[:5])
-    rows = rows.cpu().numpy()
+    keys = fetch_row_keys(rows, cf)
     pre = pre.cpu().numpy().view(np.uint32)
-    keys = np.ascontiguousarray(rows[:, 0]).view(np.uint64).reshape(nrows, 1)
     # rows are sorted by (partition, key): partition blocks are contiguous
-    bounds = np.searchsorted(rows[:, 1], np.arange(config.nb_partitions + 1))
+    bounds = np.searchsorted(rows[:, 1].cpu().numpy(),
+                             np.arange(config.nb_partitions + 1))
     if int(bounds[-1]) != nrows:
         raise RuntimeError(f"row partitions out of range: {int(bounds[-1])} "
                            f"of {nrows} rows")

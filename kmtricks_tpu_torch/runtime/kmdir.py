@@ -96,6 +96,10 @@ class KmDir:
             ext += ".lz4"
         return f"{self.matrix_storage}/matrix_{part}.{ext}"
 
+    def get_filter_path(self, ident: str, out_format: str = "howdesbt") -> str:
+        ext = "bf" if out_format == "howdesbt" else "sdsl"
+        return f"{self.filter_storage}/{ident}.{ext}"
+
     def get_hist_path(self, ident: str) -> str:
         return f"{self.hist_storage}/{ident}.hist"
 

@@ -1,8 +1,9 @@
 """``pipeline`` command: config -> repartition -> device count+merge.
 
 Counterpart of ``kmtricks_tpu/runtime/device_pipeline.py::
-run_mesh_pipeline`` on one device, for the slice this package ports:
-``kmer:count:bin``, k <= 32. It routes as the JAX package does: a
+run_mesh_pipeline`` on one device, for the slices this package ports:
+every ``--mode`` (k-mer and hash count formats; count, pa, bf, bft and
+bfc; bin and text outputs), k <= 32. It routes as the JAX package does: a
 collection that fits one device step takes the fused step
 (:mod:`kmtricks_tpu_torch.runtime.device_pipeline`); a larger one, or a
 run that wants histograms or a float soft-min, takes the streaming engine
@@ -29,7 +30,7 @@ import torch
 
 from kmtricks_tpu_torch import constants as C
 from kmtricks_tpu_torch.core.bitmatrix import transpose_bits
-from kmtricks_tpu_torch.core.hashers import HashWindow, bloom_fp
+from kmtricks_tpu_torch.core.hashers import HashWindow, bloom_fp, round_up
 from kmtricks_tpu_torch.core.histogram import KHist, compute_merge_thresholds
 from kmtricks_tpu_torch.core.kmer import kmers_to_strings
 from kmtricks_tpu_torch.core.repartition import Repartition
@@ -37,7 +38,7 @@ from kmtricks_tpu_torch.host import ops as hops
 from kmtricks_tpu_torch.io import formats as F
 from kmtricks_tpu_torch.io import sequences as seqio
 from kmtricks_tpu_torch.io.fof import Fof
-from kmtricks_tpu_torch.ops.count_merge import packed_layout
+from kmtricks_tpu_torch.ops.count_merge import stream_layout
 from kmtricks_tpu_torch.runtime.config import (
     Config, configure, save_gatb_config)
 from kmtricks_tpu_torch.runtime.device_pipeline import (
@@ -577,6 +578,32 @@ def write_merge_outputs(kmdir: KmDir, config: Config, opts: PipelineOptions,
                 f.write(f"{bloom_fp(hw.window_size_bits, int(n)):.6f}\n")
 
 
+def stage_format(kmdir: KmDir, config: Config, opts: PipelineOptions) -> None:
+    """Assemble per-sample HowDe-SBT BFs by gathering each sample's window
+    slice across all partitions (BloomBuilderFromHash/Vec semantics,
+    howde_utils.hpp:133-214; requires mode hash:bft or vector counts)."""
+    from kmtricks_tpu_torch.io.howde import write_bf_file
+
+    hw = HashWindow.load(kmdir.hash_win)
+    nsamp = len(kmdir.fof)
+    nb = F.nbytes(hw.window_size_bits)
+    slices = [[] for _ in range(nsamp)]
+    for p in range(config.nb_partitions):
+        path = kmdir.get_matrix_path(p, "bft", "bin", "hash", False)
+        info, payload = F.read_vector_matrix_payload(path)
+        # bft payload: transposed rows — ROUND_UP(nsamp,8) rows of
+        # ROUND_UP(window,8)/8 bytes (merge.hpp:631-644)
+        rows = payload.reshape(round_up(nsamp, 8),
+                               round_up(info.window, 8) // 8)
+        for s in range(nsamp):
+            slices[s].append(rows[s, :nb])
+    for s, entry in enumerate(kmdir.fof):
+        bits = np.concatenate(slices[s])
+        write_bf_file(kmdir.get_filter_path(entry.id, opts.bf_format),
+                      bits, hw.bloom_size, config.kmer_size,
+                      fmt=opts.bf_format)
+
+
 def _write_matrix_text(path: str, keys, counts, cf: str, k: int,
                        pa: bool) -> None:
     """Text matrix rows (merge.hpp:288-316 / 531-573)."""
@@ -614,24 +641,26 @@ BYTES_PER_WINDOW = 48
 
 
 def _packs(opts: PipelineOptions) -> bool:
-    """The sort layout packs (k2 or k3) for an explicit --nb-partitions;
-    an automatic count is checked once the config has set it."""
+    """The sort layout packs (k2, k3, or h1/h2 in hash mode) for an
+    explicit --nb-partitions; an automatic count is checked once the
+    config has set it."""
     if opts.nb_partitions <= 0 or not 0 < opts.kmer_size <= 32:
         return True
+    nsamp, nparts = len(Fof.parse(opts.fof)), opts.nb_partitions
+    window = HashWindow(opts.bloom_size, nparts,
+                        opts.minim_size).window_size_bits
     try:
-        packed_layout(len(Fof.parse(opts.fof)), 2 * opts.kmer_size,
-                      (opts.nb_partitions - 1).bit_length())
+        stream_layout(opts.kmer_size, nparts, nsamp,
+                      parse_mode(opts.mode)[0], window)
     except NotImplementedError:
         return False
     return True
 
 
 def check_slice(opts: PipelineOptions) -> None:
-    """Raise NotImplementedError for options outside the ported slice."""
-    cf, mode, out = parse_mode(opts.mode)
+    """Raise NotImplementedError for options outside the ported slices."""
+    parse_mode(opts.mode)
     unported = [
-        ((cf, mode, out) != ("kmer", "count", "bin"),
-         f"--mode {opts.mode} (only kmer:count:bin)"),
         (not 0 < opts.kmer_size <= 32, f"k = {opts.kmer_size} (only k <= 32)"),
         (opts.until not in ("merge", "all"), f"--until {opts.until}"),
         (opts.static_repart, "--static-repart"),
@@ -640,8 +669,9 @@ def check_slice(opts: PipelineOptions) -> None:
          "--restrict-to / --restrict-to-list"),
         (opts.kff, "--kff-output"),
         (not _packs(opts),
-         f"{opts.nb_partitions} partitions at k = {opts.kmer_size} (no "
-         "packed sort layout; the JAX package's stage_mesh_chunked)"),
+         f"{opts.nb_partitions} partitions at k = {opts.kmer_size} with "
+         f"--mode {opts.mode} (no packed sort layout; the JAX package's "
+         "stage_mesh_chunked is ROADMAP slice 4)"),
     ]
     for bad, what in unported:
         if bad:
@@ -653,11 +683,12 @@ def check_slice(opts: PipelineOptions) -> None:
 def run_pipeline(opts: PipelineOptions, device="cuda", *,
                  chunk_windows: int | None = None,
                  table_cap: int | None = None):
-    """Run ``pipeline`` for the ported slice on ``device`` (a CUDA device;
-    "cpu" runs the kernels' plain versions). ``chunk_windows`` and
+    """Run ``pipeline`` for the ported slices on ``device`` (a CUDA
+    device; "cpu" runs the kernels' plain versions). ``chunk_windows`` and
     ``table_cap`` set the streaming engine's chunk size and table budget
-    (defaults: the one-step budget and the JAX engine's). Returns the
-    KmDir."""
+    (defaults: the one-step budget and the JAX engine's). ``bft`` outputs
+    end with the per-sample filters (:func:`stage_format`) on both
+    branches. Returns the KmDir."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -684,13 +715,17 @@ def run_pipeline(opts: PipelineOptions, device="cuda", *,
                     for e in kmdir.fof for p in e.paths)
     if est_bytes > budget_windows:
         engine(use_stream=True)
-        return _finish(kmdir, t0)
-    batch, lengths, sarr = _load_global_batch(kmdir, opts)
-    n_windows = batch.shape[0] * (batch.shape[1] - config.kmer_size + 1)
-    if n_windows > budget_windows or _needs_host_aggregation(opts):
-        engine(batch=batch, lengths=lengths, sarr=sarr)
     else:
-        amin_vec = resolve_soft_min(opts.soft_min, kmdir, len(kmdir.fof))
-        stage_count_merge(kmdir, config, opts, repart, amin_vec, batch,
-                          lengths, sarr, device)
+        batch, lengths, sarr = _load_global_batch(kmdir, opts)
+        n_windows = batch.shape[0] * (batch.shape[1] - config.kmer_size + 1)
+        if n_windows > budget_windows or _needs_host_aggregation(opts):
+            engine(batch=batch, lengths=lengths, sarr=sarr)
+        else:
+            amin_vec = resolve_soft_min(opts.soft_min, kmdir,
+                                        len(kmdir.fof))
+            stage_count_merge(kmdir, config, opts, repart, amin_vec, batch,
+                              lengths, sarr, device)
+        del batch, lengths, sarr
+    if parse_mode(opts.mode)[1] == "bft":
+        stage_format(kmdir, config, opts)
     return _finish(kmdir, t0)

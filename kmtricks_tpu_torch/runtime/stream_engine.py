@@ -1,7 +1,8 @@
 """Streaming matrix engine: banks -> device count table -> files.
 
 Counterpart of the single-process body of ``kmtricks_tpu/runtime/
-stream_engine.py::stage_mesh_stream`` (k-mer mode, k <= 32, one GPU).
+stream_engine.py::stage_mesh_stream`` (k-mer and hash mode, k <= 32, one
+GPU).
 Read chunks stream from the banks (or are sliced from a loaded batch) on
 a background thread; each chunk reduces on the device to one sorted run
 of unique (packed key, count) pairs; runs fold into one table whenever
@@ -10,7 +11,10 @@ their entries pass the table budget; then phase A merges the runs
 dense rows, and the host tail applies the per-sample hard-min, writes
 histograms, resolves a float soft-min and merges and writes each
 partition with the port's copy of the JAX package's host code, so the
-run directory is byte-identical.
+run directory is byte-identical. ``pa:bin`` outputs (no plugin, no
+histograms, the soft-min resolved) take the pa-bits tail instead: the
+merge runs on the device (``merge_finalize_bits``) and only packed bits,
+keep flags and statistics cross to the host.
 
 Feature handling, as in the JAX engine:
 - per-sample hard-min (fof ``! amin``): the device applies the minimum
@@ -42,9 +46,11 @@ from kmtricks_tpu_torch.io import sequences as seqio
 from kmtricks_tpu_torch.ops.count_merge import _layout_words, stream_layout
 from kmtricks_tpu_torch.ops.table import merge_pair_streams
 from kmtricks_tpu_torch.parallel.pipeline import (
-    build_chunk_pairs_step, table_compact, table_sort_collapse)
+    build_chunk_pairs_step, merge_finalize_bits, table_compact,
+    table_sort_collapse)
 from kmtricks_tpu_torch.runtime.device_pipeline import (
-    _is_float_quantile, _pow2ceil, prefetched, stream_row_chunks)
+    _is_float_quantile, _pow2ceil, fetch_row_keys, hash_window_bits,
+    prefetched, stream_row_chunks)
 
 log = logging.getLogger("kmtricks_tpu")
 
@@ -117,13 +123,16 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, device,
     resolves the soft-min here, or after the histograms for a float
     quantile."""
     # imported here: runtime.pipeline imports this module
-    from kmtricks_tpu_torch.runtime.pipeline import resolve_soft_min
+    from kmtricks_tpu_torch.runtime.pipeline import (
+        parse_mode, resolve_soft_min)
 
     t_start = time.perf_counter()
     nsamp = len(kmdir.fof)
     k = config.kmer_size
     nb_parts = config.nb_partitions
-    layout = stream_layout(k, nb_parts, nsamp)
+    cf, mode, out = parse_mode(opts.mode)
+    window_bits = hash_window_bits(kmdir, cf)
+    layout = stream_layout(k, nb_parts, nsamp, cf, window_bits)
     if amin_vec is None and not _is_float_quantile(opts.soft_min):
         amin_vec = resolve_soft_min(opts.soft_min, kmdir, nsamp)
     count_max = (1 << (8 * config.count_bytes)) - 1
@@ -139,7 +148,8 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, device,
     chunks = prefetched(_host_tensors(gen, device), 2)
     step = build_chunk_pairs_step(
         k=k, m=config.minim_size, nsamp=nsamp, nb_parts=nb_parts,
-        mmer_canonical=config.mmer_scheme != "forward")
+        mmer_canonical=config.mmer_scheme != "forward", mode=cf,
+        window_bits=window_bits)
     table = torch.from_numpy(repart.table.astype(np.int32)).to(device)
 
     runs = []
@@ -174,25 +184,31 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, device,
     t_a = time.perf_counter()
     rows, pre, part_rows, _maxc, _npres = table_compact(
         ws, cnt, layout=layout, nsamp=nsamp, hard_min=dev_hard_min,
-        nb_parts=nb_parts)
+        nb_parts=nb_parts, window_bits=window_bits)
     table_entries = int(cnt.shape[0])
     del ws, cnt
     _sync(device)
     t_b = time.perf_counter()
-    _fetch_merge_write(kmdir, config, opts, rows, pre, part_rows, amin_vec,
-                       hard_mins, count_max, want_hists)
+    pa_bits = (mode, out) == ("pa", "bin") and not opts.plugin \
+        and not want_hists
+    if pa_bits:
+        _fetch_merge_write_pa_bits(kmdir, config, opts, cf, rows, pre,
+                                   part_rows, amin_vec, hard_mins, count_max)
+    else:
+        _fetch_merge_write(kmdir, config, opts, cf, rows, pre, part_rows,
+                           amin_vec, hard_mins, count_max, want_hists)
     t_end = time.perf_counter()
     last_run.clear()
     last_run.update(
         chunks=n_chunks, rows_per_chunk=rows_per_chunk, runs=n_runs,
         folds=n_folds, run_entries=n_entries, table_entries=table_entries,
-        rows=int(rows.shape[0]),
+        rows=int(rows.shape[0]), tail="pa_bits" if pa_bits else "dense",
         walls_s={"chunk_loop": t_stream - t_start, "phase_a": t_a - t_stream,
                  "phase_b": t_b - t_a, "tail": t_end - t_b})
 
 
-def _fetch_merge_write(kmdir, config, opts, rows, pre, part_rows, amin_vec,
-                       hard_mins, count_max, want_hists) -> None:
+def _fetch_merge_write(kmdir, config, opts, cf, rows, pre, part_rows,
+                       amin_vec, hard_mins, count_max, want_hists) -> None:
     """The engine's host tail (counterpart of ``_fetch_merge_write`` and
     ``_fetch_merge_write_pipelined``): one device-to-host copy of the row
     keys, counts and partition sizes; per-sample hard-min on the raw
@@ -203,8 +219,7 @@ def _fetch_merge_write(kmdir, config, opts, rows, pre, part_rows, amin_vec,
         resolve_soft_min, write_merge_outputs)
 
     nsamp = len(kmdir.fof)
-    keys = rows[:, 0].contiguous().cpu().numpy().view(np.uint64)
-    keys = keys.reshape(-1, 1)
+    keys = fetch_row_keys(rows, cf)
     pre = pre.cpu().numpy().view(np.uint32)
     bounds = np.zeros(config.nb_partitions + 1, np.int64)
     np.cumsum(part_rows.cpu().numpy(), out=bounds[1:])
@@ -237,3 +252,52 @@ def _fetch_merge_write(kmdir, config, opts, rows, pre, part_rows, amin_vec,
         for f in [ex.submit(merge_write, p)
                   for p in range(config.nb_partitions)]:
             f.result()
+
+
+def _fetch_merge_write_pa_bits(kmdir, config, opts, cf, rows, pre,
+                               part_rows, amin_vec, hard_mins,
+                               count_max) -> None:
+    """The presence/absence tail (counterpart of the single-process
+    ``_fetch_merge_write_pa_bits``): the merge runs on the device
+    (:func:`~kmtricks_tpu_torch.parallel.pipeline.merge_finalize_bits`),
+    and only the row keys, packed pa bits, keep flags and per-partition
+    statistics are copied to the host, which writes each partition's pa
+    matrix and merge_info."""
+    nsamp = len(kmdir.fof)
+    dev = pre.device
+    bounds = torch.zeros(config.nb_partitions + 1, dtype=torch.int64,
+                         device=dev)
+    torch.cumsum(part_rows, 0, out=bounds[1:])
+    # the soft-min is compared with saturated counts as the host merge
+    # does (the JAX tail clamps it to count_max first)
+    packed, keep, stats = merge_finalize_bits(
+        pre, torch.from_numpy(amin_vec.astype(np.int64)).to(dev),
+        torch.from_numpy(hard_mins.astype(np.int64)).to(dev), bounds,
+        rmin=opts.recurrence_min, save_if=opts.share_min,
+        count_max=count_max)
+    keys = fetch_row_keys(rows, cf)
+    packed, keep = packed.cpu().numpy(), keep.cpu().numpy()
+    stats = stats.cpu().numpy().astype(np.uint64)
+    bounds = bounds.cpu().numpy()
+    if int(bounds[-1]) != keys.shape[0]:
+        raise RuntimeError(f"partition sizes ({int(bounds[-1])} rows) "
+                           f"disagree with the table ({keys.shape[0]})")
+    for p in range(config.nb_partitions):
+        sl = slice(int(bounds[p]), int(bounds[p + 1]))
+        _pa_write_partition(kmdir, config, opts, cf, p, keys[sl],
+                            packed[sl], keep[sl], stats[:, p], nsamp)
+
+
+def _pa_write_partition(kmdir, config, opts, cf, p, keys, packed, keep,
+                        stats, nsamp) -> None:
+    """Write one partition's pa matrix and merge_info from the device
+    finalize's bit rows, keep flags and (6, nsamp) statistics."""
+    out_path = kmdir.get_matrix_path(p, "pa", "bin", cf, opts.cpr)
+    if cf == "kmer":
+        F.write_pa_matrix_file(out_path, keys[keep], packed[keep],
+                               config.kmer_size, nsamp, 0, p,
+                               compressed=opts.cpr)
+    else:
+        F.write_pa_hash_matrix_file(out_path, keys[keep], packed[keep],
+                                    nsamp, 0, p, compressed=opts.cpr)
+    hops.MergeStats(*stats).serialize(kmdir.get_merge_info_path(p))

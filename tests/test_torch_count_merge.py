@@ -1,7 +1,7 @@
-"""Port count_merge_keys (k2 and k3 sort layouts) against the JAX
-package's count_merge_keys (its XLA segment stage, the CPU default): the
-decoded sorted (partition, key, sample) order and every per-position
-output, exactly."""
+"""Port count_merge_keys (k2 and k3 sort layouts, and the h1/h2 hash
+layouts) against the JAX package's count_merge_keys (its XLA segment
+stage, the CPU default): the decoded sorted (partition, key, sample) order
+and every per-position output, exactly."""
 
 import numpy as np
 import pytest
@@ -86,3 +86,70 @@ def test_unported_layout_raises():
     assert jcm.packed_layout(40, 2, False, 62, 17).startswith("kw.")
     with pytest.raises(NotImplementedError):
         tcm.packed_layout(40, 62, 17)
+
+
+def make_hash_occurrences(seed, window, nsamp, nparts, n=6000, pool=400):
+    """Window-hash occurrences: pool keys h % window + window * partition
+    (the partition follows the key), skewed multiplicities."""
+    rng = np.random.default_rng(seed)
+    kpart = rng.integers(0, nparts, pool).astype(np.int32)
+    h = rng.integers(0, 2**64, pool, dtype=np.uint64) % np.uint64(window) \
+        + np.uint64(window) * kpart.astype(np.uint64)
+    pick = np.minimum(rng.zipf(1.3, n) - 1, pool - 1)
+    samp = rng.integers(0, nsamp, n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    return kpart[pick], h[pick], samp, valid
+
+
+HASH_CASES = [
+    # window, nsamp, nparts, hard_min, rmin, save_if, count_max, hmin vec
+    (250_048, 4, 4, 1, 1, 0, 0xFFFFFFFF, False),       # h1, 20 key bits
+    (2_500_032, 10, 4, 2, 2, 2, 255, True),            # h1, 24 key bits
+    (2**31 + 64, 5, 8, 1, 1, 2, 65535, False),         # h2, 35 key bits
+    (2**58, 12, 16, 2, 2, 1, 255, True),               # 62 + 4 bits: none
+]
+
+
+@pytest.mark.parametrize("case", HASH_CASES, ids=lambda c: f"w{c[0]}s{c[1]}")
+def test_hash_count_merge_matches_jax(case):
+    w, nsamp, nparts, hard_min, rmin, save_if, count_max, per_sample = case
+    part, h, samp, valid = make_hash_occurrences(w % 1000 + nsamp, w, nsamp,
+                                                 nparts)
+    rng = np.random.default_rng(nsamp)
+    amin = rng.integers(1, 4, nsamp).astype(np.uint32)
+    hmv = rng.integers(1, 4, nsamp).astype(np.uint32) if per_sample else None
+    kb = tcm.hash_key_bits(w, nparts)
+    layout = jcm.packed_layout(nsamp, 2, True, kb)
+    if kb + (nsamp - 1).bit_length() > 63:
+        assert layout is None
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            tcm.packed_layout(nsamp, kb, None, part_follows_keys=True)
+        return
+    assert tcm.packed_layout(nsamp, kb, None, part_follows_keys=True) \
+        == layout
+    hi = (h >> np.uint64(32)).astype(np.uint32)
+    lo = (h & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    exp = jcm.count_merge_keys(
+        part, (hi, lo), samp, valid, amin, nsamp=nsamp, hard_min=hard_min,
+        rmin=rmin, save_if=save_if, count_max=count_max, key_bits=kb,
+        part_follows_keys=True, window_bits=w, hard_min_vec=hmv)
+    got = tcm.count_merge_keys(
+        torch.from_numpy(part), torch.from_numpy(h.view(np.int64)),
+        torch.from_numpy(samp), torch.from_numpy(valid),
+        torch.from_numpy(amin.astype(np.int32)), nsamp=nsamp,
+        hard_min=hard_min, rmin=rmin, save_if=save_if, count_max=count_max,
+        key_bits=kb, part_follows_keys=True, window_bits=w,
+        hard_min_vec=None if hmv is None else torch.from_numpy(
+            hmv.astype(np.int32)))
+    e_part, e_keys, e_samp, e_final, e_cnt, e_pres, e_rh, e_rk, e_rof, _ = exp
+    e_key = keys_from_msb_words(np.asarray(e_keys[0]), np.asarray(e_keys[1]))
+    pairs = [("part", got[0], e_part), ("key", got[1], e_key),
+             ("samp", got[2], e_samp), ("final", got[3], e_final),
+             ("cnt", got[4], e_cnt), ("present", got[5], e_pres),
+             ("row_head", got[6], e_rh), ("row_keep", got[7], e_rk),
+             ("row_of", got[8], e_rof)]
+    for name, g, e in pairs:
+        np.testing.assert_array_equal(g.numpy().astype(np.int64),
+                                      np.asarray(e).astype(np.int64),
+                                      err_msg=name)
+    assert got[5].sum() > 0 and got[6].sum() > 1

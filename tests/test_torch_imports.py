@@ -160,6 +160,23 @@ def case_repartition_load_save(tmp_path):
         assert a.nb_partitions == b.nb_partitions == 8
 
 
+def case_write_bf_file(tmp_path):
+    """The port's HowDe-SBT / SDSL filter writer gives the original's
+    bytes."""
+    from kmtricks_tpu.io import howde as jax_howde
+    from kmtricks_tpu_torch.io import howde
+
+    rng = np.random.default_rng(7)
+    for bloom, fmt in ((1_000_064, "howdesbt"), (640, "sdsl"),
+                       (4096, "howdesbt")):
+        bits = rng.integers(0, 256, bloom // 8, dtype=np.uint8)
+        a, b = tmp_path / f"port.{fmt}", tmp_path / f"jax.{fmt}"
+        howde.write_bf_file(str(a), bits, bloom, 31, fmt=fmt)
+        jax_howde.write_bf_file(str(b), bits, bloom, 31, fmt=fmt)
+        assert a.read_bytes() == b.read_bytes()
+        assert len(a.read_bytes()) > bloom // 8
+
+
 COPY_CASES = {
     "count_sequences": case_count_sequences,
     "merge_partition": case_merge_partition,
@@ -167,13 +184,15 @@ COPY_CASES = {
     "native_xxh64": case_native_xxh64,
     "lz4_round_trip": case_lz4_round_trip,
     "repartition_load_save": case_repartition_load_save,
+    "write_bf_file": case_write_bf_file,
 }
+WRITES_FILES = ("repartition_load_save", "write_bf_file")
 
 
 @pytest.mark.parametrize("case", sorted(COPY_CASES))
 def test_host_copy_matches_original(case, tmp_path):
     fn = COPY_CASES[case]
-    fn(tmp_path) if case == "repartition_load_save" else fn()
+    fn(tmp_path) if case in WRITES_FILES else fn()
 
 
 def test_port_sequences_parse_like_the_original():

@@ -1,6 +1,7 @@
-"""The port's slice as a whole: the fused single-device step against the
-JAX package's build_single_chip_step, and ``run_pipeline`` on the CPU
-against ``kmtricks_tpu --backend host``, byte for byte."""
+"""The port's slices as a whole: the fused single-device step (k-mer and
+hash keys) against the JAX package's build_single_chip_step, and
+``run_pipeline`` on the CPU against ``kmtricks_tpu --backend host``, byte
+for byte, for every count format, mode and output."""
 
 import os
 import pathlib
@@ -71,6 +72,33 @@ def test_single_chip_step_matches_jax(k, params):
                                   np.asarray(pre_j)[:nrows].astype(np.int64))
 
 
+def test_single_chip_hash_step_matches_jax():
+    """mode="hash": the window hashes, their partitions (hash // window)
+    and the counts of the compacted rows, against the JAX hash step."""
+    nsamp, m, nparts, k, w = 4, 8, 4, 31, 250_048
+    batch, lengths, samp, table, amin = synthetic_batch(5, nsamp, m=m,
+                                                        nparts=nparts)
+    step = jax.jit(jax_step(k=k, m=m, nsamp=nsamp, hard_min=2, rmin=2,
+                            save_if=1, count_max=255, nb_parts=nparts,
+                            mode="hash", window_bits=w, with_stats=False,
+                            compact_rows=8192))
+    rows_j, pre_j, nrows_j, maxc_j, npres_j = step(batch, lengths, samp,
+                                                   table, amin)
+    args = from_jax_inputs(batch, lengths, samp, table, amin, None, "cpu")
+    rows, pre, nrows, maxc, npres = build_single_chip_step(
+        k=k, m=m, nsamp=nsamp, nb_parts=nparts, hard_min=2, rmin=2,
+        save_if=1, count_max=255, mode="hash", window_bits=w)(*args[:5])
+    assert (nrows, maxc, npres) == (int(nrows_j), int(maxc_j), int(npres_j))
+    assert nrows > 100
+    rows_j = np.asarray(rows_j)[:nrows]
+    hashes = keys_from_msb_words(rows_j[:, 0], rows_j[:, 1]).numpy()
+    np.testing.assert_array_equal(rows[:, 0].numpy(), hashes)
+    np.testing.assert_array_equal(rows[:, 1].numpy(), hashes // w)
+    assert len(np.unique(hashes // w)) == nparts
+    np.testing.assert_array_equal(pre.numpy(),
+                                  np.asarray(pre_j)[:nrows].astype(np.int64))
+
+
 def write_fof(path, amin=None):
     """Ten multi-file samples over the data_ref_exec collections: sample c
     reads collection c, its first file once more (counts >= 2) and the
@@ -91,8 +119,10 @@ def write_fof(path, amin=None):
 
 
 def run_dir_files(root):
+    """The run dir's outputs: matrices, merge infos, the bf fpr files and
+    the per-sample filters of bft."""
     out = {}
-    for sub in ("matrices", "merge_infos"):
+    for sub in ("matrices", "merge_infos", "fpr", "filters"):
         for name in sorted(os.listdir(os.path.join(root, sub))):
             with open(os.path.join(root, sub, name), "rb") as f:
                 out[f"{sub}/{name}"] = f.read()
@@ -108,6 +138,28 @@ PIPELINE_CASES = {
                                     share_min=1, amin=True),
     "k21_forward_mmers": dict(kmer_size=21, hard_min=1, soft_min="1",
                               recurrence_min=2, mmer_scheme="forward"),
+    "hash_count_bin": dict(kmer_size=31, hard_min=1, soft_min="2",
+                           share_min=1, mode="hash:count:bin",
+                           bloom_size=500_000),
+    "hash_count_text": dict(kmer_size=21, hard_min=1, soft_min="1",
+                            recurrence_min=2, mode="hash:count:text",
+                            bloom_size=1_000_000),
+    "hash_pa_bin": dict(kmer_size=31, hard_min=1, soft_min="2",
+                        share_min=2, mode="hash:pa:bin",
+                        bloom_size=600_000),
+    "hash_bf_bin": dict(kmer_size=31, hard_min=1, soft_min="2",
+                        share_min=1, mode="hash:bf:bin", bloom_size=800_000),
+    "hash_bft_bin": dict(kmer_size=31, hard_min=1, soft_min="1",
+                         mode="hash:bft:bin", bloom_size=1_000_000),
+    "hash_bfc_bin_bitw2": dict(kmer_size=31, hard_min=1, soft_min="2",
+                               share_min=1, mode="hash:bfc:bin", bitw=2,
+                               bloom_size=700_000),
+    "kmer_pa_bin": dict(kmer_size=31, hard_min=1, soft_min="2", share_min=1,
+                        mode="kmer:pa:bin", amin=True),
+    "kmer_pa_text": dict(kmer_size=21, hard_min=1, soft_min="1",
+                         recurrence_min=2, mode="kmer:pa:text"),
+    "kmer_count_text": dict(kmer_size=31, hard_min=1, soft_min="1",
+                            recurrence_min=2, mode="kmer:count:text"),
 }
 
 
@@ -130,20 +182,26 @@ def test_run_pipeline_matches_host_backend(tmp_path, case):
     for name in a:
         assert a[name] == b[name], name
     assert any(len(v) > 100 for k, v in a.items() if k.startswith("mat"))
+    mode = kw.get("mode", "kmer:count:bin").split(":")[1]
+    assert any(n.startswith("fpr/") for n in a) == (mode == "bf")
+    assert sum(n.startswith("filters/") for n in a) == (
+        10 if mode == "bft" else 0)
 
 
 def test_port_never_imports_jax(tmp_path):
     """Importing every port module and chip_smoke, and running the CPU
     pipeline through the one-step path and through the streaming engine
-    (chunks decoded from the banks, histograms, a float soft-min), with
-    the port's own options, leaves jax and the JAX package out of
-    sys.modules (run in a fresh interpreter)."""
+    (chunks decoded from the banks, histograms, a float soft-min; hash
+    keys with the per-sample filters; the pa-bits tail), with the port's
+    own options, leaves jax and the JAX package out of sys.modules (run
+    in a fresh interpreter)."""
     fof = write_fof(tmp_path / "c.fof")
     code = f"""
 import sys
 import kmtricks_tpu_torch, kmtricks_tpu_torch.cli, kmtricks_tpu_torch._build
 import kmtricks_tpu_torch.convert, kmtricks_tpu_torch.ops.segscan
 import kmtricks_tpu_torch.ops.merge_runs, kmtricks_tpu_torch.ops.table
+import kmtricks_tpu_torch.ops.xxh64, kmtricks_tpu_torch.io.howde
 import chip_smoke
 from kmtricks_tpu_torch.runtime.pipeline import PipelineOptions, run_pipeline
 from kmtricks_tpu_torch.runtime import stream_engine
@@ -153,6 +211,12 @@ run_pipeline(PipelineOptions(fof={fof!r}, run_dir={str(tmp_path / 'se')!r},
                              kmer_size=31, max_memory_mb=1, soft_min="0.5",
                              threads=2), device="cpu")
 assert stream_engine.last_run["chunks"] > 1
+for mode in ("hash:bft:bin", "kmer:pa:bin"):
+    run_pipeline(PipelineOptions(fof={fof!r}, mode=mode, kmer_size=31,
+                                 run_dir={str(tmp_path / 'h')!r} + mode[:4],
+                                 max_memory_mb=1, bloom_size=500_000),
+                 device="cpu")
+assert stream_engine.last_run["tail"] == "pa_bits"
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "kmtricks_tpu")]
 assert not bad, bad
@@ -175,6 +239,17 @@ def test_cli_raises_without_cuda(tmp_path, monkeypatch):
     assert not (tmp_path / "rd").exists()
 
 
+def test_hash_mode_raises_without_cuda(tmp_path, monkeypatch):
+    """The flagship hash:bf:bin run has no CPU fallback on the CLI."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fof = write_fof(tmp_path / "c.fof")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["pipeline", "--file", fof, "--run-dir",
+                  str(tmp_path / "rd"), "--mode", "hash:bf:bin",
+                  "--bloom-size", "1000000"])
+    assert not (tmp_path / "rd").exists()
+
+
 @pytest.mark.parametrize("argv", [
     ["count", "--run-dir", "x", "--id", "S0"],
     ["pipeline", "--file", "f", "--run-dir", "x", "--backend", "host"],
@@ -185,7 +260,8 @@ def test_cli_refuses_unported_commands(argv):
 
 
 @pytest.mark.parametrize("opt", [
-    dict(mode="hash:count:bin"), dict(mode="kmer:pa:bin"),
+    dict(minim_type=1), dict(restrict_to_list=[0]),
+    dict(mode="hash:bf:bin", bloom_size=2**62, nb_partitions=16),
     dict(kmer_size=41), dict(static_repart=True), dict(restrict_to=0.5),
     dict(until="count"), dict(nb_partitions=1 << 17),
 ])

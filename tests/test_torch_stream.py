@@ -1,16 +1,23 @@
 """The port's streaming engine as a whole: ``run_pipeline(device="cpu")``
 through the engine against ``kmtricks_tpu --backend host``, byte for byte
-(matrices, merge infos and histograms); the routing against the JAX
-package's ``run_mesh_pipeline``; and the prefetch thread's errors."""
+(matrices, merge infos, histograms, fpr files and filters; k-mer and hash
+keys, the dense tail and the pa-bits tail); the device pa finalize against
+the JAX package's; the routing against the JAX package's
+``run_mesh_pipeline``; and the prefetch thread's errors."""
 
+import dataclasses
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
 
 import kmtricks_tpu.runtime.device_pipeline as jdp
+import kmtricks_tpu.runtime.pipeline as JP
 import kmtricks_tpu.runtime.stream_engine as jse
+from kmtricks_tpu.parallel.pipeline import build_merge_finalize_bits
+from kmtricks_tpu_torch.parallel.pipeline import merge_finalize_bits
 from kmtricks_tpu.runtime.pipeline import PipelineOptions as JaxOptions
 from kmtricks_tpu.runtime.pipeline import run_pipeline as jax_run_pipeline
 from kmtricks_tpu_torch.runtime import pipeline as P
@@ -22,10 +29,11 @@ from test_torch_pipeline import write_fof
 torch.set_num_threads(2)
 
 
-def write_odd_fof(tmp_path):
+def write_odd_fof(tmp_path, deep=False):
     """Three samples of reads from one genome: reads longer than the
     engine's 4096-base rows (split with k - 1 overlap), reads with 'N',
-    reads shorter than k, and duplicates (counts >= 2)."""
+    reads shorter than k, and duplicates (counts >= 2). ``deep``: sample 0
+    also holds one 300-base read 300 times (counts >= 300)."""
     rng = np.random.default_rng(11)
     genome = rng.choice(np.frombuffer(b"ACGT", np.uint8), 20000)
     lines = []
@@ -40,6 +48,8 @@ def write_odd_fof(tmp_path):
             reads.append(r)
         reads += [genome[s * 100:s * 100 + 9000], genome[5000:11000]]
         reads += reads[:10]
+        if deep and s == 0:
+            reads += [genome[:300]] * 300
         path = tmp_path / f"S{s}.fasta"
         path.write_bytes(b"".join(b">r%d\n%s\n" % (i, r.tobytes())
                                   for i, r in enumerate(reads)))
@@ -51,7 +61,7 @@ def write_odd_fof(tmp_path):
 
 def run_dir_files(root):
     out = {}
-    for sub in ("matrices", "merge_infos", "histograms"):
+    for sub in ("matrices", "merge_infos", "histograms", "fpr", "filters"):
         d = os.path.join(root, sub)
         for name in sorted(os.listdir(d)) if os.path.isdir(d) else ():
             with open(os.path.join(d, name), "rb") as f:
@@ -60,8 +70,10 @@ def run_dir_files(root):
 
 
 # kw: PipelineOptions; engine: run_pipeline's engine keywords; fof: "ref"
-# (the ten data_ref_exec samples) or "odd" (write_odd_fof); stream: the
-# chunks come from the banks (est_bytes over the one-step budget)
+# (the ten data_ref_exec samples), "odd" or "deep" (write_odd_fof);
+# stream: the chunks come from the banks (est_bytes over the one-step
+# budget); soft_mins: a per-sample --soft-min file; count_bytes: the
+# configured count type of both runs
 ENGINE_CASES = {
     "k31_banks_many_chunks": dict(
         kw=dict(kmer_size=31, hard_min=1, soft_min="1", max_memory_mb=1),
@@ -81,6 +93,29 @@ ENGINE_CASES = {
     "k31_banks_long_reads_folds": dict(
         kw=dict(kmer_size=31, hard_min=2, soft_min="1", max_memory_mb=1),
         engine=dict(table_cap=55_000), fof="odd", stream=True, folds=True),
+    "hash_bf_banks": dict(
+        kw=dict(kmer_size=31, hard_min=1, soft_min="2", share_min=1,
+                max_memory_mb=1, mode="hash:bf:bin", bloom_size=800_000),
+        stream=True),
+    "hash_bft_banks_folds": dict(
+        kw=dict(kmer_size=31, hard_min=1, soft_min="1", max_memory_mb=1,
+                mode="hash:bft:bin", bloom_size=1_000_000),
+        engine=dict(table_cap=92_000), stream=True, folds=True),
+    "kmer_pa_banks_pa_tail": dict(
+        kw=dict(kmer_size=31, hard_min=1, soft_min="2", share_min=1,
+                max_memory_mb=1, mode="kmer:pa:bin"), amin=True,
+        stream=True, tail="pa_bits"),
+    "hash_pa_banks_pa_tail": dict(
+        kw=dict(kmer_size=21, hard_min=2, soft_min="1", recurrence_min=2,
+                max_memory_mb=1, mode="hash:pa:bin", bloom_size=600_000),
+        stream=True, tail="pa_bits"),
+    # a soft-min above a 1-byte count type's 255: the host merge compares
+    # the saturated counts with it as given, so sample 0 is never solid
+    # (the JAX device tail clamps the soft-min to 255 first)
+    "kmer_pa_soft_min_over_count_max_pa_tail": dict(
+        kw=dict(kmer_size=21, hard_min=1, share_min=1, max_memory_mb=1,
+                mode="kmer:pa:bin"), soft_mins=[300, 1, 1], count_bytes=1,
+        fof="deep", stream=True, tail="pa_bits"),
 }
 
 
@@ -88,8 +123,18 @@ ENGINE_CASES = {
 def test_engine_matches_host_backend(tmp_path, case, monkeypatch):
     c = ENGINE_CASES[case]
     kw = dict(c["kw"], nb_partitions=4)
-    if c.get("fof") == "odd":
-        fof = write_odd_fof(tmp_path)
+    if "soft_mins" in c:
+        path = tmp_path / "soft_min.txt"
+        path.write_text("".join(f"{v}\n" for v in c["soft_mins"]))
+        kw["soft_min"] = str(path)
+    if "count_bytes" in c:
+        for mod in (P, JP):
+            monkeypatch.setattr(
+                mod, "configure", lambda *a, _real=mod.configure, **k:
+                dataclasses.replace(_real(*a, **k),
+                                    count_bytes=c["count_bytes"]))
+    if c.get("fof") in ("odd", "deep"):
+        fof = write_odd_fof(tmp_path, deep=c["fof"] == "deep")
     else:
         fof = write_fof(tmp_path / "c.fof", [1, 2, 1, 3, 1, 2, 2, 1, 1, 2]
                         if c.get("amin") else None)
@@ -111,6 +156,7 @@ def test_engine_matches_host_backend(tmp_path, case, monkeypatch):
     assert stats["chunks"] >= 3
     if c.get("folds"):
         assert stats["folds"] >= 2
+    assert stats["tail"] == c.get("tail", "dense")
     a, b = run_dir_files(host.root), run_dir_files(port.root)
     assert sorted(a) == sorted(b)
     for name in a:
@@ -118,6 +164,69 @@ def test_engine_matches_host_backend(tmp_path, case, monkeypatch):
     assert any(n.startswith("histograms/") for n in a) == bool(
         kw.get("hist") or kw["soft_min"] == "0.5")
     assert sum(len(v) for n, v in a.items() if n.startswith("mat")) > 1000
+    if "soft_mins" in c:
+        # the bank tells that rule from the clamped one
+        cmax = (1 << (8 * c["count_bytes"])) - 1
+        path = tmp_path / "soft_min_clamped.txt"
+        path.write_text("".join(f"{min(v, cmax)}\n" for v in c["soft_mins"]))
+        clamped = jax_run_pipeline(JaxOptions(
+            fof=fof, run_dir=str(tmp_path / "clamped"), backend="host",
+            **dict(kw, soft_min=str(path))))
+        assert run_dir_files(clamped.root) != a
+
+
+@pytest.mark.parametrize("count_bytes", [1, 2, 4])
+@pytest.mark.parametrize("save_if", [0, 2])
+def test_merge_finalize_bits_matches_jax(count_bytes, save_if):
+    """The device pa finalize against the JAX package's
+    build_merge_finalize_bits on a one-device CPU mesh: pa bits, keep
+    flags, and the statistics (the JAX byte planes recombined)."""
+    nsamp, rows, nb_parts = 11, 3000, 5
+    count_max = (1 << (8 * count_bytes)) - 1
+    rng = np.random.default_rng(count_bytes * 10 + save_if)
+    top = min(count_max * 2, 2**32 - 1)
+    pre = np.where(rng.random((rows, nsamp)) < 0.4,
+                   rng.integers(1, 8, (rows, nsamp)),
+                   rng.integers(0, top, (rows, nsamp),
+                                dtype=np.uint64)).astype(np.uint32)
+    pre[rng.random((rows, nsamp)) < 0.3] = 0
+    amin = rng.integers(1, min(count_max, 6), nsamp).astype(np.uint32)
+    hmv = rng.integers(1, 3, nsamp).astype(np.uint32)
+    bounds = np.concatenate([[0], np.sort(rng.integers(0, rows, nb_parts - 1)),
+                             [rows]]).astype(np.int32)
+    rmin = 6
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("d",))
+    packed_j, keep_j, planes = build_merge_finalize_bits(
+        mesh, nsamp=nsamp, rows_cap=rows, rmin=rmin, save_if=save_if,
+        count_max=count_max, nb_parts=nb_parts, count_bytes=count_bytes)(
+        pre, amin, hmv, bounds)
+    planes = np.asarray(planes).astype(np.uint64)
+    cb = count_bytes
+    tot_wo = sum(planes[4 + i] << np.uint64(8 * i) for i in range(cb))
+    tot_rs = sum(planes[4 + cb + i] << np.uint64(8 * i) for i in range(cb))
+    exp_stats = np.stack(list(planes[:4]) + [tot_wo, tot_wo + tot_rs])
+
+    packed, keep, stats = merge_finalize_bits(
+        torch.from_numpy(pre.view(np.int32)),
+        torch.from_numpy(amin.astype(np.int64)),
+        torch.from_numpy(hmv.astype(np.int64)),
+        torch.from_numpy(bounds.astype(np.int64)), rmin=rmin,
+        save_if=save_if, count_max=count_max)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(packed_j))
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(keep_j) > 0)
+    np.testing.assert_array_equal(stats.numpy().astype(np.uint64),
+                                  exp_stats)
+    # in blocks of 63 rows, across the partitions' bounds
+    blocked = merge_finalize_bits(
+        torch.from_numpy(pre.view(np.int32)),
+        torch.from_numpy(amin.astype(np.int64)),
+        torch.from_numpy(hmv.astype(np.int64)),
+        torch.from_numpy(bounds.astype(np.int64)), rmin=rmin,
+        save_if=save_if, count_max=count_max, block=63 * nsamp)
+    for x, y in zip(blocked, (packed, keep, stats)):
+        assert torch.equal(x, y)
+    assert keep.any() and not keep.all() and (stats[1].sum() > 0) == (
+        save_if > 0)
 
 
 def test_engine_table_overflow_raises(tmp_path):
