@@ -7,13 +7,18 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 It drives the port's main path (``pipeline``, every ``--mode``; the
-flagship ``hash:bf:bin`` at full size) and checks it, in phases that
-each print one JSON line:
+flagship ``hash:bf:bin`` at full size; the repartition tally on the card,
+``--static-repart`` and wide k up to 128) and checks it, in phases that
+each print one JSON line. Port runs compute their own repartition with
+the tally on the card unless they reuse another run's, and their run
+directories are compared with the reference's repartition and minimizer
+files included:
 
 1. probe: torch, CUDA and nvcc versions, the card's name and power limit;
 2. build: compiles the CUDA kernels from ``kmtricks_tpu_torch/csrc``, with
    the registers, spills and shared memory that ``-Xptxas -v`` reports for
-   the merge kernels;
+   each instantiation of the merge kernels (1-5 key words, with and
+   without the payload);
 3. kernels: K1/K2 against their plain PyTorch versions on the card, bit
    for bit and ten launches per case, on the cases of
    tests/test_pallas_segscan.py, at the CUDA tile's edges, on runs that
@@ -56,7 +61,25 @@ each print one JSON line:
    the count) against its plain version, ten launches, and timed; the
    device times of the window hash and the pa finalize (plain torch)
    beside their bytes bounds; and the pa-bits tail against the dense tail
-   on the same ``kmer:pa:bin`` table, timed in turns, same files.
+   on the same ``kmer:pa:bin`` table, timed in turns, same files;
+11. repartition tally: the tally on the card against the host numpy
+   tally, bins bit for bit, on the phase-4 bank (k = 31, 21, 63) and on
+   the 30x bank; the config + repartition wall of a 30x run with each
+   tally; one full tally block's device time beside its bytes bound; peak
+   device bytes;
+12. ``--static-repart`` (k = 31) and 13. wide k (k = 45, 63, 96 and 128
+   ``kmer:count:bin``; ``hash:bf:bin`` and ``kmer:pa:bin`` at k = 63) on
+   the phase-4 bank, one step and engine, against the host stages byte
+   for byte (the host stages run up to seven at a time, in processes of
+   their own, as in phase 9);
+14. k = 63 at full width: the 8x bank in one step; the 30x bank through
+   the engine against the one-step path and a forced-fold run; walls,
+   peak device memory and K1/K2/K4 launches of each;
+15. K4 over 3, 4 and 5 int64 key words with the count (the kw layouts'
+   sort words), ten launches per case, at the 2048 and 4096 tiles' edges,
+   ties and odd int64 slots; on the k = 63 engine's phase-A runs (device
+   time, ``call_ms``, plain time, bytes bound) and on synthetic runs of 3
+   to 5 words.
 
 Kernel times are device times: CUDA events around a batch of
 back-to-back calls enqueued behind a sleep kernel, divided by their
@@ -80,7 +103,7 @@ import shutil
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -320,13 +343,14 @@ def check_kernels(inputs, rmin, save_if, cmax, S, reps=REPEATS):
 
 def host_run(fof, run_dir, k, repart_from=None, max_memory=8192,
              hist=False, soft_min="2", mode="kmer:count:bin",
-             bloom_size=None, bitw=None, stage_format=False):
+             bloom_size=None, bitw=None, stage_format=False,
+             static_repart=False):
     """The host stages one by one, from the port's copy of the JAX
     package's host layer (numpy, independent of the device path under
-    test): config, repartition (host tally), per-sample count (with
-    histograms under ``hist``; k-mers or window hashes, as ``mode``
-    says), soft-min, per-partition merge, and under ``stage_format`` the
-    per-sample filters of ``bft``."""
+    test): config, repartition (the host numpy tally, or XXH64 under
+    ``static_repart``), per-sample count (with histograms under ``hist``;
+    k-mers or window hashes, as ``mode`` says), soft-min, per-partition
+    merge, and under ``stage_format`` the per-sample filters of ``bft``."""
     from kmtricks_tpu_torch import constants as C
     from kmtricks_tpu_torch.runtime import pipeline as P
 
@@ -335,7 +359,7 @@ def host_run(fof, run_dir, k, repart_from=None, max_memory=8192,
         soft_min=soft_min, share_min=2, recurrence_min=1, backend="host",
         repart_from=repart_from, max_memory_mb=max_memory, hist=hist,
         mode=mode, bloom_size=bloom_size or C.DEFAULT_BLOOM_SIZE,
-        bitw=bitw or C.DEFAULT_BITW)
+        bitw=bitw or C.DEFAULT_BITW, static_repart=static_repart)
     kmdir, config = P.stage_config(opts)
     rep = P.stage_repart(kmdir, config, opts)
     for s in range(len(kmdir.fof)):
@@ -348,13 +372,36 @@ def host_run(fof, run_dir, k, repart_from=None, max_memory=8192,
     return config.nb_partitions
 
 
-def port_run(fof, run_dir, k, repart_from, extra=()):
-    """The port's main path through its command line."""
+def host_runs(jobs) -> dict:
+    """``host_run(**job)`` for each job of {tag: job}, up to seven at a
+    time in processes of their own (the host stages are single-threaded
+    numpy; the card's machine has eight cores); returns {tag: seconds}.
+    The pool is joined before it returns."""
+    import multiprocessing
+
+    with ProcessPoolExecutor(
+            max_workers=min(7, len(jobs)),
+            mp_context=multiprocessing.get_context("spawn")) as ex:
+        futs = {tag: ex.submit(timed_host_run, job)
+                for tag, job in jobs.items()}
+        return {tag: f.result() for tag, f in futs.items()}
+
+
+def timed_host_run(job) -> float:
+    """host_run(**job), timed (a pool worker's task)."""
+    t0 = time.perf_counter()
+    host_run(**job)
+    return time.perf_counter() - t0
+
+
+def port_run(fof, run_dir, k, repart_from=None, extra=()):
+    """The port's main path through its command line: its own repartition
+    (the tally on the card), or ``repart_from``'s."""
     from kmtricks_tpu_torch.cli import main
 
+    reuse = ["--repart-from", repart_from] if repart_from else []
     main(["pipeline", "--file", fof, "--run-dir", run_dir, "--kmer-size",
-          str(k), "--repart-from", repart_from, "-v", "warning"] + OPTS
-         + list(extra))
+          str(k), "-v", "warning"] + reuse + OPTS + list(extra))
 
 
 def mode_args(mode, bloom_size, bitw=None):
@@ -364,15 +411,19 @@ def mode_args(mode, bloom_size, bitw=None):
     return args + (["--bitw", str(bitw)] if bitw else [])
 
 
+RUN_SUBS = ("repartition", "minimizers", "matrices", "merge_infos")
+
+
 def mode_subs(mode):
-    """The run-dir folders a mode writes: matrices and merge infos, the
-    fpr files of bf, the per-sample filters of bft."""
+    """The run-dir folders a mode writes: the repartition and its
+    minimizer lists, matrices and merge infos, the fpr files of bf, the
+    per-sample filters of bft."""
     out = mode.split(":")[1]
-    return (("matrices", "merge_infos") + (("fpr",) if out == "bf" else ())
+    return (RUN_SUBS + (("fpr",) if out == "bf" else ())
             + (("filters",) if out == "bft" else ()))
 
 
-def compare_run_dirs(a, b, subs=("matrices", "merge_infos")):
+def compare_run_dirs(a, b, subs=RUN_SUBS):
     """Every file under ``subs`` of run dir ``a`` must exist in ``b`` with
     the same bytes; returns (files, bytes) compared."""
     nfiles = nbytes = 0
@@ -654,24 +705,27 @@ def phase_a_runs(fof, run_dir, k, dev, repart_from=None, **kw):
 
 def output_parity(fof, repart_from, SE) -> None:
     """Phase 9: every output mode on the phase-4 bank at k = 31, through
-    the one-step path and through the engine (``SMALL_MEM``), against the
-    host stages byte for byte (fpr files and filters included)."""
+    the one-step path and through the engine (``SMALL_MEM``), each with
+    its own repartition from the tally on the card, against the host
+    stages (``repart_from``'s numpy tally) byte for byte (fpr files and
+    filters included)."""
+    tags = {mode: mode.replace(":", "_") for mode, _bitw in MODES}
+    host_s = host_runs({mode: dict(
+        fof=fof, run_dir=os.path.join(WORK, f"host_{tags[mode]}"), k=31,
+        repart_from=repart_from, mode=mode, bloom_size=BLOOM_SMALL,
+        bitw=bitw, stage_format=mode == "hash:bft:bin")
+        for mode, bitw in MODES})
     for mode, bitw in MODES:
-        tag = mode.replace(":", "_")
-        host_rd = os.path.join(WORK, f"host_{tag}")
-        t0 = time.perf_counter()
-        host_run(fof, host_rd, 31, repart_from, mode=mode,
-                 bloom_size=BLOOM_SMALL, bitw=bitw,
-                 stage_format=mode == "hash:bft:bin")
+        host_rd = os.path.join(WORK, f"host_{tags[mode]}")
         res = {"phase": "output_parity", "mode": mode,
-               "host_s": time.perf_counter() - t0}
+               "host_s": host_s[mode]}
         for branch, extra in (("one_step", []),
                               ("engine", ["--max-memory", str(SMALL_MEM)])):
-            rd = os.path.join(WORK, f"port_{tag}_{branch}")
+            rd = os.path.join(WORK, f"port_{tags[mode]}_{branch}")
             SE.last_run.clear()
             t0 = time.perf_counter()
-            port_run(fof, rd, 31, host_rd,
-                     mode_args(mode, BLOOM_SMALL, bitw) + extra)
+            port_run(fof, rd, 31, extra=mode_args(mode, BLOOM_SMALL, bitw)
+                     + extra)
             res[f"{branch}_s"] = time.perf_counter() - t0
             stats = dict(SE.last_run)
             if branch == "one_step" and stats:
@@ -687,7 +741,7 @@ def output_parity(fof, repart_from, SE) -> None:
         emit(res)
 
 
-def timed_run(counters, SE, fof, run_dir, repart_from, extra):
+def timed_run(counters, SE, fof, run_dir, repart_from, extra, k=31):
     """One port run through the CLI with the kernel counters set to 0
     just before it: wall, peak device bytes, launches and engine stats."""
     reset(*counters)
@@ -695,7 +749,7 @@ def timed_run(counters, SE, fof, run_dir, repart_from, extra):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    port_run(fof, run_dir, 31, repart_from, extra)
+    port_run(fof, run_dir, k, repart_from, extra)
     torch.cuda.synchronize()
     launches = {}
     for c in counters:
@@ -877,6 +931,275 @@ def hash_full_size(fof_big, host_full, fof_e2e, eng_rd, S, MR, SE, dev,
     return {name: r["launches"] for name, r in runs.items()}, k4_hash
 
 
+WIDE_MODES = ((45, "kmer:count:bin"), (63, "kmer:count:bin"),
+              (96, "kmer:count:bin"), (128, "kmer:count:bin"),
+              (63, "hash:bf:bin"), (63, "kmer:pa:bin"))
+
+
+def tally_phase(fof_small, fof_e2e, dev, smi) -> dict:
+    """Phase 11: the repartition tally on the card. Its bins against the
+    host numpy tally's, bit for bit, on the phase-4 bank (k = 31, 21, 63)
+    and on the 30x bank; the config + repartition wall of a run on the 30x
+    bank with each tally (device, host, device); one full tally block's
+    device time beside its bytes bound; peak device bytes."""
+    from kmtricks_tpu_torch.io import sequences as seqio
+    from kmtricks_tpu_torch.ops import repart_sample as RS
+    from kmtricks_tpu_torch.ops.encode import pack_2bit_host
+    from kmtricks_tpu_torch.runtime import pipeline as P
+
+    bins = {}
+    for name, fof, ks in (("small", fof_small, (31, 21, 63)),
+                          ("e2e", fof_e2e, (31,))):
+        for k in ks:
+            opts = P.PipelineOptions(
+                fof=fof, run_dir=os.path.join(WORK, f"tally_{name}_{k}"),
+                kmer_size=k)
+            kmdir, config = P.stage_config(opts)
+            t0 = time.perf_counter()
+            host = P.sample_minimizer_bins(kmdir, config)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t2 = time.perf_counter()
+            got = P.sample_minimizer_bins(kmdir, config, device=dev)
+            t3 = time.perf_counter()
+            if not np.array_equal(got, host):
+                raise AssertionError(f"device tally differs: {name} k={k}")
+            bins[f"{name} k={k}"] = {
+                "minimizer_size": config.minim_size,
+                "kxmer_starts": int(host.sum()), "host_tally_s": t1 - t0,
+                "device_tally_s": t3 - t2,
+                "peak_device_bytes": torch.cuda.max_memory_allocated() - base}
+    # the config + repartition stages of a run on the 30x bank, each tally
+    walls = {"device": [], "host": []}
+    tables = set()
+    for side in ("device", "host", "device"):
+        rd = os.path.join(WORK, f"repart_e2e_{side}")
+        shutil.rmtree(rd, ignore_errors=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opts = P.PipelineOptions(fof=fof_e2e, run_dir=rd, kmer_size=31)
+        kmdir, config = P.stage_config(opts)
+        P.stage_repart(kmdir, config, opts, dev if side == "device" else None)
+        torch.cuda.synchronize()
+        walls[side].append(time.perf_counter() - t0)
+        with open(kmdir.repart_path, "rb") as f:
+            tables.add(f.read())
+    if len(tables) != 1:
+        raise AssertionError("the two tallies' repartitions differ")
+    # one full block of the 30x bank (its first reads, as the sampler
+    # blocks them): device time against packed bases and validity bits
+    # read once and 4^m int64 bins written once
+    m = config.minim_size
+    batch, lengths = next(seqio.iter_batches(kmdir.fof.entries[0].paths))
+    L = -(-batch.shape[1] // 128) * 128
+    B = P.REPART_BLOCK
+    while B > 128 and B * L > P.REPART_BLOCK * 512:
+        B //= 2
+    blk = np.full((B, L), ord("N"), np.uint8)
+    lens = np.zeros(B, np.int32)
+    n = min(B, len(lengths))
+    blk[:n, :batch.shape[1]] = batch[:n]
+    lens[:n] = lengths[:n]
+    packed, vbits = (torch.from_numpy(a).to(dev) for a in pack_2bit_host(blk))
+    lens_d = torch.from_numpy(lens).to(dev)
+    tbins = RS.make_bins(m, dev)
+    step = lambda: RS.tally_step(tbins, packed, vbits, lens_d, k=31,  # noqa
+                                 m=m)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    block_peak = torch.cuda.max_memory_allocated() - base
+    block_ms = device_ms(step)
+    block_bytes = (packed.numel() + vbits.numel() + lens_d.numel() * 4
+                   + 4 ** m * 8)
+    res = {"phase": "repartition_tally", "bins_identical": bins,
+           "e2e_config_repart_wall_s": walls,
+           "block": {"reads": n, "rows": B, "read_len_padded": L,
+                     "k": 31, "minimizer_size": m,
+                     "device_ms_3_repeats": block_ms,
+                     "bound_ms": block_bytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes",
+                     "peak_extra_device_bytes": block_peak},
+           "gpu": smi}
+    emit(res)
+    return res
+
+
+def wide_parity(fof_small, SE, MR, S) -> dict:
+    """Phases 12-13: --static-repart (k = 31) and wide k (k = 45, 63, 96
+    and 128 kmer:count:bin; hash:bf:bin and kmer:pa:bin at k = 63) on the
+    phase-4 bank, through the one-step path and the engine
+    (``SMALL_MEM``), against the host stages byte for byte; the host
+    stages run in parallel (``host_runs``). Returns each run's
+    launches."""
+    jobs = {"static k=31": dict(fof=fof_small, k=31, static_repart=True,
+                                run_dir=os.path.join(WORK, "host_static"))}
+    for k, mode in WIDE_MODES:
+        jobs[f"{mode} k={k}"] = dict(
+            fof=fof_small, k=k, mode=mode, bloom_size=BLOOM_SMALL,
+            run_dir=os.path.join(WORK, f"host_w{k}_{mode[:4]}{mode[5:7]}"))
+    host_s = host_runs(jobs)
+    launches = {}
+    for tag, job in jobs.items():
+        mode = job.get("mode", "kmer:count:bin")
+        extra = (["--static-repart"] if job.get("static_repart")
+                 else mode_args(mode, BLOOM_SMALL))
+        res = {"phase": "static_repart" if "static" in tag
+               else "wide_k_parity", "case": tag, "host_s": host_s[tag]}
+        for branch, more in (("one_step", []),
+                             ("engine", ["--max-memory", str(SMALL_MEM)])):
+            rd = job["run_dir"].replace("host_", "port_") + "_" + branch
+            reset(MR.LAUNCHES, S.LAUNCHES)
+            SE.last_run.clear()
+            t0 = time.perf_counter()
+            port_run(fof_small, rd, job["k"], extra=extra + more)
+            res[f"{branch}_s"] = time.perf_counter() - t0
+            stats = dict(SE.last_run)
+            got = {**S.LAUNCHES, **MR.LAUNCHES}
+            if branch == "one_step" and (stats or not got["bwd"]):
+                raise AssertionError(f"{tag}: one-step run {stats} {got}")
+            if branch == "engine" and (stats.get("chunks", 0) < 5
+                                       or not got["K4"]):
+                raise AssertionError(f"{tag}: engine run {stats} {got}")
+            launches[f"{tag} {branch}"] = got
+            files, nbytes = compare_run_dirs(job["run_dir"], rd,
+                                             mode_subs(mode))
+            res[f"{branch}_files_identical"] = files
+            res["bytes"] = nbytes
+            res[f"{branch}_launches"] = got
+        emit(res)
+    return launches
+
+
+def wide_full_size(fof_big, fof_e2e, S, MR, SE, smi):
+    """Phase 14: k = 63 at full width: the 8x bank in one step; the 30x
+    bank through the engine (default --max-memory) against the one-step
+    path (--max-memory 65536) and against a forced-fold run; walls, peak
+    device bytes and K1/K2/K4 launches of each. Returns the runs and the
+    engine run's directory."""
+    from kmtricks_tpu_torch.runtime.pipeline import (
+        BYTES_PER_WINDOW, PipelineOptions, run_pipeline)
+
+    counters = (S.LAUNCHES, MR.LAUNCHES)
+    runs = {"kmer:count:bin 8x k=63 one step": timed_run(
+        counters, SE, fof_big, os.path.join(WORK, "w63_8x"), None, [], 63)}
+    eng_rd = os.path.join(WORK, "w63_e2e_engine")
+    runs["kmer:count:bin 30x k=63 engine"] = timed_run(
+        counters, SE, fof_e2e, eng_rd, None, [], 63)
+    eng = runs["kmer:count:bin 30x k=63 engine"]["engine"]
+    nparts = len(os.listdir(os.path.join(eng_rd, "merge_infos")))
+    one_rd = os.path.join(WORK, "w63_e2e_one")
+    runs["kmer:count:bin 30x k=63 one step"] = timed_run(
+        counters, SE, fof_e2e, one_rd, eng_rd,
+        ["--max-memory", "65536", "--nb-partitions", str(nparts)], 63)
+    one_files = compare_run_dirs(eng_rd, one_rd)
+    shutil.rmtree(one_rd)
+    reset(*counters)
+    fold_rd = os.path.join(WORK, "w63_e2e_folds")
+    t0 = time.perf_counter()
+    run_pipeline(PipelineOptions(
+        fof=fof_e2e, run_dir=fold_rd, kmer_size=63, hard_min=2,
+        soft_min="2", share_min=2, recurrence_min=1, repart_from=eng_rd,
+        nb_partitions=nparts), device="cuda",
+        chunk_windows=int(8192 * 1e6 / BYTES_PER_WINDOW) // 16,
+        table_cap=int(eng["table_entries"] * 1.05))
+    folds = {"wall_s": time.perf_counter() - t0,
+             "engine": dict(SE.last_run), "launches": dict(MR.LAUNCHES)}
+    if folds["engine"]["folds"] < 2:
+        raise AssertionError(f"expected two or more folds: {folds}")
+    fold_files = compare_run_dirs(eng_rd, fold_rd)
+    shutil.rmtree(fold_rd)
+    for name, r in runs.items():
+        got = r["launches"]
+        if "engine" in name:
+            if not (got["K4"] > 0 and got["K4_split"] == got["K4"]
+                    and r["engine"]):
+                raise AssertionError(f"{name}: {got} {r['engine']}")
+        elif r["engine"] or not (got["bwd"] > 0 and got["fwd"] > 0):
+            raise AssertionError(f"{name} skipped the one-step path: {got}")
+    emit({"phase": "wide_full_size", "k": 63, "runs": runs,
+          "engine_vs_one_step_files_bytes": one_files,
+          "forced_folds": folds, "engine_vs_forced_folds_files_bytes":
+          fold_files, "gpu": smi})
+    return runs, eng_rd
+
+
+def k4_wide(dev, fof_e2e, eng_rd, MR, smi) -> dict:
+    """Phase 15: K4 over 3, 4 and 5 int64 key words plus the count
+    against its plain version, ten launches per case, at the tiles' edges
+    (2048 outputs for four to six staged arrays, 4096 for three), over
+    ties, few keys and windows at odd int64 slots; then on the k = 63
+    engine's phase-A runs (device time, call_ms, plain time, bytes bound)
+    and on synthetic runs of 3 to 5 words at the same entry count."""
+    from kmtricks_tpu_torch import _build
+
+    rng = np.random.default_rng(15)
+    err, cases = 0, 0
+    for nw in (3, 4, 5):
+        for payload in (True, False):
+            t = _build.merge_tile(nw + payload)
+            for lens in ([t, t], [t - 1, t + 1], [t + 1, t], [2 * t - 1, 1],
+                         [1, 2 * t], [3 * t + 5, 2 * t - 3],
+                         [t - 1, 0, 2 * t + 2], [300] * 7):
+                for span in (1 << 62, 3):
+                    err = max(err, merge_err(sorted_runs(
+                        rng, lens, nw, payload, span, dev), MR, REPEATS))
+                    cases += 1
+        t = _build.merge_tile(nw + 1)
+        err = max(err, merge_err([                      # one key, 20 tiles
+            (tuple(torch.full((n,), 7, dtype=torch.int64, device=dev)
+                   for _ in range(nw)),
+             torch.arange(n, dtype=torch.int64, device=dev) + 10 * r)
+            for r, n in enumerate((12 * t + 3, 8 * t))], MR, REPEATS))
+        cases += 1
+        for shift in ("a", "b", "payload", "all"):
+            (aw, ap), (bw, bp) = sorted_runs(rng, [4 * t + 3, 3 * t + 2], nw,
+                                             True, 1 << 62, dev)
+            if shift in ("a", "all"):
+                aw = tuple(at_odd_slot(w) if i % 2 == 0 else w
+                           for i, w in enumerate(aw))
+            if shift in ("b", "all"):
+                bw = tuple(at_odd_slot(w) if i % 2 else w
+                           for i, w in enumerate(bw))
+            if shift in ("payload", "all"):
+                ap, bp = at_odd_slot(ap), at_odd_slot(bp)
+            err = max(err, merge_err([(aw, ap), (bw, bp)], MR, REPEATS))
+            cases += 1
+    runs = phase_a_runs(fof_e2e, os.path.join(WORK, "runs_w63"), 63, dev,
+                        repart_from=eng_rd)[0]
+    nw = len(runs[0][0])
+    err = max(err, merge_err(runs, MR, REPEATS))
+    entries = sum(int(c.shape[0]) for _w, c in runs)
+    k4 = lambda: MR.merge_sorted_runs_cuda(runs)  # noqa: E731
+    phase_a = {"phase_a_runs": [int(c.shape[0]) for _w, c in runs],
+               "key_words": nw, "device_ms_3_repeats": device_ms(k4),
+               "call_ms": cuda_ms(k4),
+               "plain_ms": cuda_ms(lambda: MR.merge_sorted_runs_torch(runs)),
+               "bound_ms": entries * 2 * 8 * (nw + 1) / HBM_BYTES_PER_S
+               * 1e3, "bound_by": "bytes", "max_abs_err": err}
+    phase_a["ms"] = median(phase_a["device_ms_3_repeats"])
+    del runs
+    synth = {}
+    lens = [entries // 2 + entries % 2, entries // 2]
+    for w in (3, 4, 5):
+        sruns = sorted_runs(rng, lens, w, True, 1 << 62, dev)
+        f = lambda: MR.merge_sorted_runs_cuda(sruns)  # noqa: E731
+        synth[w] = {"device_ms_3_repeats": device_ms(f),
+                    "bound_ms": entries * 2 * 8 * (w + 1) / HBM_BYTES_PER_S
+                    * 1e3}
+        del sruns
+    torch.cuda.empty_cache()
+    emit({"phase": "k4_wide", "cases": cases, "repeats": REPEATS,
+          "max_abs_err": err, "k63_phase_a": phase_a,
+          "synthetic_runs": {"entries": entries, "by_key_words": synth},
+          "gpu": smi})
+    return phase_a
+
+
 def reset(*counters) -> None:
     for c in counters:
         for key in c:
@@ -922,7 +1245,7 @@ def main() -> int:
           # by arrays staged (key words + payload)
           "merge_tiles_dynamic_smem_bytes": {
               arrays: _build.merge_runs_lib().km_merge_smem(arrays)
-              for arrays in (1, 2, 3)}})
+              for arrays in range(1, 7)}})
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -983,7 +1306,7 @@ def main() -> int:
             host_run(fof_small, host_rd, k)
             t1 = time.perf_counter()
             port_rd = os.path.join(WORK, f"port_k{k}")
-            port_run(fof_small, port_rd, k, host_rd)
+            port_run(fof_small, port_rd, k)
             t2 = time.perf_counter()
             files, nbytes = compare_run_dirs(host_rd, port_rd)
             emit({"phase": "parity", "k": k, "files_identical": files,
@@ -998,7 +1321,7 @@ def main() -> int:
             S.LAUNCHES[key] = 0
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        port_run(fof_big, os.path.join(WORK, "port_full"), 31, host_rd)
+        port_run(fof_big, os.path.join(WORK, "port_full"), 31)
         torch.cuda.synchronize()
         port_s = time.perf_counter() - t0
         launches = dict(S.LAUNCHES)
@@ -1084,15 +1407,15 @@ def main() -> int:
                      soft_min="0.5" if hist else "2")
             t1 = time.perf_counter()
             port_rd = os.path.join(WORK, f"port_engine_{tag}")
-            port_run(fof_small, port_rd, k, host_rd, small_mem + (
+            port_run(fof_small, port_rd, k, extra=small_mem + (
                 ["--hist", "--soft-min", "0.5"] if hist else []))
             t2 = time.perf_counter()
             stats = dict(SE.last_run)
             if stats.get("chunks", 0) < 5:
                 raise AssertionError(f"engine took {stats} chunks")
             files, nbytes = compare_run_dirs(
-                host_rd, port_rd, ("matrices", "merge_infos")
-                + (("histograms",) if hist else ()))
+                host_rd, port_rd, RUN_SUBS + (("histograms",) if hist
+                                              else ()))
             emit({"phase": "engine_parity", "k": k, "hist_soft_min_0.5": hist,
                   "files_identical": files, "bytes": nbytes,
                   "chunks": stats["chunks"], "runs": stats["runs"],
@@ -1178,6 +1501,16 @@ def main() -> int:
         hash_launches, k4_hash = hash_full_size(
             fof_big, os.path.join(WORK, "host_full"), fof_e2e, eng_rd, S, MR,
             SE, dev, smi)
+
+        # 11. the repartition tally on the card
+        tally_phase(fof_small, fof_e2e, dev, smi)
+
+        # 12-13. --static-repart and wide k against the host stages
+        wide_launches = wide_parity(fof_small, SE, MR, S)
+
+        # 14. k = 63 at full width; 15. K4 over 3-5 key words
+        wide_runs, w63_rd = wide_full_size(fof_big, fof_e2e, S, MR, SE, smi)
+        k4_wide_a = k4_wide(dev, fof_e2e, w63_rd, MR, smi)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1197,6 +1530,12 @@ def main() -> int:
     for path, counts in hash_launches.items():
         for name in ("bwd", "fwd") if "one step" in path else ("K3", "K4"):
             by_path[name][path] = counts[name]
+    for path, r in wide_runs.items():
+        for name in ("bwd", "fwd") if "one step" in path else ("K3", "K4"):
+            by_path[name][path] = r["launches"][name]
+    wide_k4 = {key: sum(v["K4"] for tag, v in wide_launches.items()
+                        if key in tag and tag.endswith("engine"))
+               for key in ("k=45", "k=63", "k=96", "k=128")}
     emit({"kernels": [
         {"name": "segscan_bwd (K1)", "route": "cuda", "source": src,
          "replaces": "kmtricks_tpu/ops/pallas_segscan.py:123",
@@ -1229,13 +1568,19 @@ def main() -> int:
          "launches": eng_launches["K4"],
          "launches_by_path": by_path["K4"],
          "partition_launches": eng_launches["K4_split"],
-         "max_abs_err": max(merrs["K4"], k4_hash["max_abs_err"]),
+         "max_abs_err": max(merrs["K4"], k4_hash["max_abs_err"],
+                            k4_wide_a["max_abs_err"]),
          "ms": mtimes["K4"], "call_ms": mtimes["K4_call"],
          "plain_ms": mtimes["K4_plain"],
          "bound_ms": mbound["K4"], "bound_by": "bytes", "library_ms": None,
          # the hash engine's form: one key word + the count
          "hash_phase_a": {key: k4_hash[key] for key in (
-             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms")}},
+             "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms")},
+         # the wide form: the k = 63 engine's kw words + the count
+         "wide_phase_a": {key: k4_wide_a[key] for key in (
+             "key_words", "max_abs_err", "ms", "call_ms", "plain_ms",
+             "bound_ms")},
+         "wide_parity_engine_launches": wide_k4},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

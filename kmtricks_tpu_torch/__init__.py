@@ -7,15 +7,20 @@ the port's own copy of the JAX package's numpy and C++ code, and the
 device path is ported module by module, each TPU kernel as a CUDA kernel
 written by hand with a plain PyTorch version beside it.
 
-Ported so far: ``pipeline --mode kmer:count:bin`` for k <= 32 on one GPU,
-through the fused one-step path and the streaming engine. Anything else
-raises NotImplementedError.
+Ported so far: the ``pipeline`` command on one GPU, every ``--mode``
+(k-mer and hash counts; count, pa, bf, bft and bfc matrices; bin and
+text outputs) for k <= 128, with the repartition tally on the device and
+``--static-repart``, through the fused one-step path and the streaming
+engine. Anything else (the other subcommands, ``--until`` before merge,
+``--minimizer-type 1``, ``--restrict-to[-list]``, KFF outputs, sort
+layouts that do not pack) raises NotImplementedError.
 
 Layout (each module names its ``kmtricks_tpu`` counterpart):
   constants.py, core/, host/, io/, native/
              copies of the JAX package's host modules (what the port runs)
   ops/       encode, sort words, segment stage (CUDA K1/K2), compaction,
-             run merge (CUDA K3/K4), the engine's table ops
+             run merge (CUDA K3/K4), the engine's table ops, the
+             repartition tally
   parallel/  the fused single-device step and the engine's device steps
   runtime/   the pipeline, host stages, config and run directory
   csrc/      CUDA sources, built at first use by _build.py

@@ -1,4 +1,4 @@
-from kmtricks_tpu_torch.cli import main
+from kmtricks_tpu_torch.cli import main_with_backtrace
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main_with_backtrace())

@@ -23,7 +23,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 TILE = 4096     # elements per block of the segscan kernels (csrc/segscan.cu)
-MERGE_TILE = 4096   # outputs per tile of the merge kernels (merge_runs.cu)
+# outputs per tile of the merge kernels (merge_runs.cu): MERGE_TILE for up
+# to three staged arrays (key words + payload), MERGE_TILE_WIDE for four
+# to six, whose two shared-memory stages of 4096 would not fit
+MERGE_TILE = 4096
+MERGE_TILE_WIDE = 2048
+
+
+def merge_tile(arrays: int) -> int:
+    """Outputs per tile of the merge kernel that stages ``arrays`` arrays."""
+    return MERGE_TILE if arrays <= 3 else MERGE_TILE_WIDE
 
 
 def _nvcc() -> str:
@@ -76,16 +85,18 @@ def merge_runs_lib() -> ctypes.CDLL:
     """The merge-path run merge K3/K4 (built on first call)."""
     lib = ctypes.CDLL(build("merge_runs"))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    pp = ctypes.POINTER(ctypes.c_void_p)
     lib.km_merge_runs.restype = i
-    lib.km_merge_runs.argtypes = [i, p, p, p, i64, p, p, p, i64, p, p, p, p,
-                                  i64, p]
+    lib.km_merge_runs.argtypes = [i, pp, p, i64, pp, p, i64, pp, p, p, i64,
+                                  p]
     lib.km_merge_tile.restype = i
-    lib.km_merge_tile.argtypes = []
+    lib.km_merge_tile.argtypes = [i]
     lib.km_merge_smem.restype = i64
     lib.km_merge_smem.argtypes = [i]
     lib.km_error_string.restype = ctypes.c_char_p
     lib.km_error_string.argtypes = [i]
-    if lib.km_merge_tile() != MERGE_TILE:
-        raise RuntimeError("csrc/merge_runs.cu TILE differs from "
-                           "_build.MERGE_TILE")
+    for arrays in range(1, 7):
+        if lib.km_merge_tile(arrays) != merge_tile(arrays):
+            raise RuntimeError("csrc/merge_runs.cu tiles differ from "
+                               "_build.merge_tile")
     return lib

@@ -234,3 +234,23 @@ def main(argv=None) -> int:
 
     run_pipeline(_options_from_args(args), device="cuda")
     return 0
+
+
+def main_with_backtrace(argv=None) -> int:
+    """CLI entry with crash capture (copy of ``kmtricks_tpu/cli.py::
+    main_with_backtrace``): an unhandled exception is written to
+    ``kmtricks_backtrace.log`` before returning 1 (the reference's
+    SignalHandler behavior, include/kmtricks/signals.hpp:68-158)."""
+    import traceback
+
+    try:
+        return main(argv)
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except Exception:
+        with open("kmtricks_backtrace.log", "w") as f:
+            f.write(traceback.format_exc())
+        logging.getLogger("kmtricks_tpu").error(
+            "fatal error — backtrace written to kmtricks_backtrace.log")
+        traceback.print_exc()
+        return 1

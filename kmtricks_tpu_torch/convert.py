@@ -42,3 +42,13 @@ def keys_from_msb_words(hi, lo) -> torch.Tensor:
     u = ((np.asarray(hi, dtype=np.uint64) << np.uint64(32))
          | np.asarray(lo, dtype=np.uint64))
     return torch.from_numpy(u.view(np.int64))
+
+
+def words_from_msb_u32(words) -> tuple:
+    """The JAX package's msb-first u32 key words of a wide k-mer -> the
+    port's int64 words, least significant first (the same u64 bits), as
+    CPU tensors."""
+    nw = len(words)
+    return tuple(keys_from_msb_words(words[nw - 2 - 2 * i],
+                                     words[nw - 1 - 2 * i])
+                 for i in range(nw // 2))

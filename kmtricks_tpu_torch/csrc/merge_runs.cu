@@ -1,5 +1,5 @@
 // Merge-path merge of two ascending runs: kernels K3 (one key word, no
-// payload) and K4 (one or two key words, an int64 payload).
+// payload) and K4 (one to five key words, an int64 payload).
 //
 // Replaces the Pallas TPU kernels kmtricks_tpu/ops/pallas_sort.py
 // _merge_kernel (K3, via merge_sorted_runs_u32) and _merge_kernel_mw (K4,
@@ -7,7 +7,7 @@
 // PyTorch version kmtricks_tpu_torch/ops/merge_runs.py::
 // merge_sorted_runs_torch: a stable sort of the concatenation A ++ B.
 //
-// Keys are NW in {1, 2} int64 words, compared lexicographically (word 0
+// Keys are NW in 1..5 int64 words, compared lexicographically (word 0
 // most significant) as signed int64, the order torch.sort uses; the port's
 // sort words keep the top bit clear, so that is also their unsigned order.
 // Equal keys take A's element first (the TPU split's `av <= bv`), which
@@ -16,9 +16,9 @@
 //
 // What bounds it on an H100: device-memory bytes. Each element is read
 // once and written once, 8 * (NW + payload) bytes each way: 16 B/element
-// for K3, 48 B for K4 with two words. At 3.35 TB/s that is 52.5 us for
-// K3 and 157 us for K4 at 10,983,197 elements. The arithmetic is a
-// handful of compares per element.
+// for K3, 48 B for K4 with two words, 96 B with five. At 3.35 TB/s that
+// is 52.5 us for K3 and 157 us for K4 at 10,983,197 elements. The
+// arithmetic is a handful of compares per element.
 //
 // Design, two launches per merge:
 // 1. merge_partition: the merge-path split (the number of A elements among
@@ -32,7 +32,10 @@
 //    tile's critical path.
 // 2. merge_tiles: persistent blocks (as many as fit on the card, each
 //    walking tiles blockIdx.x, + gridDim.x, ...) over output tiles of
-//    TILE = 4096 elements, THREADS = 512 threads of ITEMS = 8 outputs.
+//    TILE = 4096 elements, THREADS = 512 threads of ITEMS = 8 outputs, for
+//    up to three staged arrays (key words and payload); 2048 elements and
+//    256 threads for four to six (the wide k-mers' sort words), whose two
+//    stages of 4096 would not fit in shared memory.
 //    Two shared-memory stages: while a tile merges from one, the next
 //    tile's A and B windows (key words and payload) arrive in the other by
 //    cp.async. A window is fetched from the 16-byte boundary at or below
@@ -48,7 +51,9 @@
 //    in output order and writes them with 16-byte stores, fully coalesced.
 // Shared memory per block: 2 stages x (NW + payload) arrays x (TILE + 16)
 // int64 + 2 * TILE bytes of positions: 72 KB for K3 (two blocks per SM,
-// held to two by registers), 201 KB for K4 with two words (one block).
+// held to two by registers), 201 KB for K4 with two words (one block),
+// 132 / 165 / 198 KB for K4 with three / four / five words at the
+// 2048 tile (one block).
 // The shape was chosen on the card by timing builds of other shapes: at
 // the engine's phase-A runs 512 threads of 8 beat 256 of 16 and 128 of 32
 // on K4 (fewer warps idle behind the merge's shared-memory latency) and
@@ -65,19 +70,31 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TILE 4096                   // outputs per tile
+#define TILE 4096                   // outputs per tile, 1-3 arrays
+#define TILE_WIDE 2048              // outputs per tile, 4-6 arrays
 #define ITEMS 8                     // outputs per thread
-#define THREADS (TILE / ITEMS)
-#define BUF (TILE + 16)             // staged elements per array and stage
 #define PART_THREADS 256            // partition: 8 warps, one split each
 #define MAX_DEVICES 64
-
-static_assert(ITEMS % 8 == 0 && TILE % ITEMS == 0, "tile shape");
-static_assert(THREADS >= 32 && THREADS <= 1024, "block size");
-static_assert(TILE <= 65536, "src entries must fit 16 bits");
-static_assert(BUF % 16 == 0, "a stage is whole 128-byte rows");
+#define MAX_WORDS 5                 // key words
 
 typedef long long i64;
+
+// outputs per tile for `arrays` staged arrays (key words + payload)
+__host__ __device__ constexpr int tile_for(int arrays) {
+  return arrays <= 3 ? TILE : TILE_WIDE;
+}
+
+// The merge kernel's shape for NA staged arrays
+template <int NA>
+struct Shape {
+  static constexpr int T = tile_for(NA);       // outputs per tile
+  static constexpr int THREADS = T / ITEMS;
+  static constexpr int BUF = T + 16;           // staged elements per array
+  static_assert(ITEMS % 8 == 0 && T % ITEMS == 0, "tile shape");
+  static_assert(THREADS >= 32 && THREADS <= 1024, "block size");
+  static_assert(T <= 65536, "src entries must fit 16 bits");
+  static_assert(BUF % 16 == 0, "a stage is whole 128-byte rows");
+};
 
 template <int NW>
 struct Words {
@@ -121,12 +138,12 @@ __device__ __forceinline__ i64 warp_search(const Words<NW>& a,
   return klo;
 }
 
-// splits[t] = number of A elements among the first d = min(t * TILE, na +
+// splits[t] = number of A elements among the first d = min(t * T, na +
 // nb) outputs of merge(A, B), ties to A; one warp per t. A coarse search
-// over the samples x = k * TILE (whose partners b[(t - k) * TILE - 1] are
-// the same for every diagonal, so they stay in L2) narrows the split to
-// one tile's width; a fine search finds it there.
-template <int NW>
+// over the samples x = k * T (whose partners b[(t - k) * T - 1] are the
+// same for every diagonal, so they stay in L2) narrows the split to one
+// tile's width; a fine search finds it there.
+template <int NW, int T>
 __global__ void __launch_bounds__(PART_THREADS)
 merge_partition(Words<NW> a, i64 na, Words<NW> b, i64 nb, i64 nsplit,
                 i64* __restrict__ splits) {
@@ -134,12 +151,12 @@ merge_partition(Words<NW> a, i64 na, Words<NW> b, i64 nb, i64 nsplit,
   const int lane = threadIdx.x & 31;
   if (t >= nsplit) return;                      // the whole warp
   const i64 n = na + nb;
-  const i64 d = t * TILE < n ? t * TILE : n;
+  const i64 d = t * T < n ? t * T : n;
   i64 lo = d > nb ? d - nb : 0, hi = d < na ? d : na;
-  const i64 klo = (lo + TILE - 1) / TILE, khi = (hi + TILE - 1) / TILE;
-  const i64 kf = warp_search<NW>(a, b, d, TILE, klo, khi, lane);
-  if (kf > klo) lo = (kf - 1) * TILE + 1;
-  if (kf < khi) hi = kf * TILE;
+  const i64 klo = (lo + T - 1) / T, khi = (hi + T - 1) / T;
+  const i64 kf = warp_search<NW>(a, b, d, T, klo, khi, lane);
+  if (kf > klo) lo = (kf - 1) * T + 1;
+  if (kf < khi) hi = kf * T;
   lo = warp_search<NW>(a, b, d, 1, lo, hi, lane);
   if (lane == 0) splits[t] = lo;
 }
@@ -178,6 +195,7 @@ __device__ __forceinline__ int swz(int p) {
 // Copy g[s .. s + c) into the staged array arr from slot off (even) on, as
 // it lies from the 16-byte boundary at or below &g[s]: g[s + j] lands at
 // slot off + par + j. Nothing outside the window is read.
+template <int THREADS>
 __device__ __forceinline__ void stage(i64* arr, int off, const i64* g, i64 s,
                                       int c, int par) {
   const int chunks = (par + c + 1) >> 1;
@@ -208,9 +226,10 @@ template <int NA>
 __device__ __forceinline__ Tile<NA> tile_of(i64 tile, i64 s0, i64 s1, i64 n,
                                             const i64* const* ga,
                                             const i64* const* gb) {
+  constexpr int T = Shape<NA>::T;
   Tile<NA> t;
-  t.d0 = tile * TILE;
-  const i64 d1 = t.d0 + TILE < n ? t.d0 + TILE : n;
+  t.d0 = tile * T;
+  const i64 d1 = t.d0 + T < n ? t.d0 + T : n;
   t.a0 = s0;
   t.b0 = t.d0 - s0;
   t.ta = (int)(s1 - s0);
@@ -227,10 +246,12 @@ template <int NA>
 __device__ __forceinline__ void fetch(const Tile<NA>& t, i64* buf,
                                       const i64* const* ga,
                                       const i64* const* gb) {
+  constexpr int BUF = Shape<NA>::BUF, THREADS = Shape<NA>::THREADS;
 #pragma unroll
   for (int x = 0; x < NA; ++x) {
-    stage(buf + x * BUF, 0, ga[x], t.a0, t.ta, t.pa[x]);
-    stage(buf + x * BUF, t.pb[x] & ~1, gb[x], t.b0, t.tb, t.pb[x] & 1);
+    stage<THREADS>(buf + x * BUF, 0, ga[x], t.a0, t.ta, t.pa[x]);
+    stage<THREADS>(buf + x * BUF, t.pb[x] & ~1, gb[x], t.b0, t.tb,
+                   t.pb[x] & 1);
   }
 }
 
@@ -238,6 +259,7 @@ __device__ __forceinline__ void fetch(const Tile<NA>& t, i64* buf,
 template <int NW, int NA>
 __device__ __forceinline__ bool le_shared(const Tile<NA>& t, const i64* buf,
                                           int i, int j) {
+  constexpr int BUF = Shape<NA>::BUF;
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
     i64 x = buf[w * BUF + swz(t.pa[w] + i)];
@@ -260,6 +282,7 @@ __device__ __forceinline__ bool le_regs(const i64* x, const i64* y) {
 template <int NW, int NA>
 __device__ __forceinline__ void merge_src(const Tile<NA>& t, const i64* buf,
                                           unsigned short* src) {
+  constexpr int BUF = Shape<NA>::BUF;
   const int ta = t.ta, tb = t.tb, len = ta + tb;
   const int t0 = threadIdx.x * ITEMS;
   if (t0 >= len) return;
@@ -270,7 +293,7 @@ __device__ __forceinline__ void merge_src(const Tile<NA>& t, const i64* buf,
     else hi = mid;
   }
   int i = lo, j = t0 - lo;
-  // A[ta] and B[tb] lie inside the stage (BUF >= TILE + 4): read, not used
+  // A[ta] and B[tb] lie inside the stage (BUF >= T + 4): read, not used
   i64 ka[NW], kb[NW];
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
@@ -310,6 +333,7 @@ template <int NA>
 __device__ __forceinline__ void store_tile(const Tile<NA>& t, const i64* buf,
                                            const unsigned short* src,
                                            i64* const* go) {
+  constexpr int BUF = Shape<NA>::BUF, THREADS = Shape<NA>::THREADS;
   const int len = t.ta + t.tb;
   const unsigned* src2 = reinterpret_cast<const unsigned*>(src);
   for (int p = threadIdx.x; 2 * p < len; p += THREADS) {
@@ -334,12 +358,13 @@ __device__ __forceinline__ void store_tile(const Tile<NA>& t, const i64* buf,
 }
 
 template <int NW, bool PAY>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Shape<NW + (PAY ? 1 : 0)>::THREADS)
 merge_tiles(Words<NW> a, const i64* __restrict__ pay_a, i64 na, Words<NW> b,
             const i64* __restrict__ pay_b, i64 nb, OutWords<NW> o,
             i64* __restrict__ pay_o, const i64* __restrict__ splits,
             i64 ntiles) {
   constexpr int NA = NW + (PAY ? 1 : 0);
+  constexpr int BUF = Shape<NA>::BUF;
   extern __shared__ __align__(16) i64 smem[];   // [2][NA][BUF], then src
   unsigned short* src = reinterpret_cast<unsigned short*>(smem + 2 * NA * BUF);
   const i64* ga[NA];
@@ -393,7 +418,8 @@ merge_tiles(Words<NW> a, const i64* __restrict__ pay_a, i64 na, Words<NW> b,
 }
 
 static size_t smem_bytes(int arrays) {
-  return (size_t)2 * arrays * BUF * sizeof(i64) + TILE * sizeof(short);
+  const int t = tile_for(arrays);
+  return (size_t)2 * arrays * (t + 16) * sizeof(i64) + t * sizeof(short);
 }
 
 template <int NW, bool PAY>
@@ -402,8 +428,9 @@ static int launch(const void* const* aw, const void* ap, int64_t na,
                   void* const* ow, void* op, i64* splits, int64_t nsplit,
                   cudaStream_t st) {
   constexpr int NA = NW + (PAY ? 1 : 0);
+  constexpr int T = Shape<NA>::T, THREADS = Shape<NA>::THREADS;
   static int grid_of[MAX_DEVICES];   // persistent grid per device, set once
-  const int64_t ntiles = (na + nb + TILE - 1) / TILE;
+  const int64_t ntiles = (na + nb + T - 1) / T;
   if (nsplit != ntiles + 1) return cudaErrorInvalidValue;
   const size_t smem = smem_bytes(NA);
   int dev;
@@ -432,8 +459,9 @@ static int launch(const void* const* aw, const void* ap, int64_t na,
     o.w[w] = (i64*)ow[w];
   }
   const int warps = PART_THREADS / 32;
-  merge_partition<NW><<<(unsigned)((nsplit + warps - 1) / warps),
-                        PART_THREADS, 0, st>>>(a, na, b, nb, nsplit, splits);
+  merge_partition<NW, T><<<(unsigned)((nsplit + warps - 1) / warps),
+                           PART_THREADS, 0, st>>>(a, na, b, nb, nsplit,
+                                                  splits);
   e = cudaGetLastError();
   if (e) return e;
   const unsigned grid =
@@ -444,50 +472,69 @@ static int launch(const void* const* aw, const void* ap, int64_t na,
   return (int)cudaGetLastError();
 }
 
+template <int NW>
+static int launch_nw(bool pay, const void* const* aw, const void* ap,
+                     int64_t na, const void* const* bw, const void* bp,
+                     int64_t nb, void* const* ow, void* op, i64* splits,
+                     int64_t nsplit, cudaStream_t st) {
+  return pay ? launch<NW, true>(aw, ap, na, bw, bp, nb, ow, op, splits,
+                                nsplit, st)
+             : launch<NW, false>(aw, ap, na, bw, bp, nb, ow, op, splits,
+                                 nsplit, st);
+}
+
 extern "C" const char* km_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// outputs per tile: the wrapper sizes the split scratch from it
-extern "C" int km_merge_tile(void) { return TILE; }
+// outputs per tile of the merge for `arrays` staged arrays (key words
+// plus payload): the wrapper sizes the split scratch from it
+extern "C" int km_merge_tile(int arrays) { return tile_for(arrays); }
 
 // dynamic shared memory of merge_tiles, in bytes, for `arrays` staged
-// arrays (key words plus payload)
+// arrays
 extern "C" int64_t km_merge_smem(int arrays) {
   return (int64_t)smem_bytes(arrays);
 }
 
 // Merge run A (na elements) and run B (nb) into out (na + nb elements).
-// a1/b1/o1 are the second key words (ignored when nw == 1); ap/bp/op the
-// payloads, all null for the payload-free form. splits is int64 scratch of
-// nsplit = ceil((na + nb) / TILE) + 1 entries. Inputs must be 8-byte and
+// a, b and o are arrays of nw key-word pointers (word 0 most
+// significant), 1 <= nw <= 5; ap/bp/op the payloads, all null for the
+// payload-free form. splits is int64 scratch of nsplit = ceil((na + nb) /
+// km_merge_tile(nw + payload)) + 1 entries. Inputs must be 8-byte and
 // outputs 16-byte aligned. Two launches on `stream`: the partition, then
 // the merge. Returns a cudaError_t.
-extern "C" int km_merge_runs(int nw, const void* a0, const void* a1,
-                             const void* ap, int64_t na, const void* b0,
-                             const void* b1, const void* bp, int64_t nb,
-                             void* o0, void* o1, void* op, void* splits,
-                             int64_t nsplit, void* stream) {
-  if (na < 0 || nb < 0 || (nw != 1 && nw != 2)) return cudaErrorInvalidValue;
+extern "C" int km_merge_runs(int nw, const void* const* a, const void* ap,
+                             int64_t na, const void* const* b, const void* bp,
+                             int64_t nb, void* const* o, void* op,
+                             void* splits, int64_t nsplit, void* stream) {
+  if (na < 0 || nb < 0 || nw < 1 || nw > MAX_WORDS)
+    return cudaErrorInvalidValue;
   const bool pay = op != 0;
   if ((ap != 0) != pay || (bp != 0) != pay) return cudaErrorInvalidValue;
   if (na + nb == 0) return 0;
-  if ((na + nb + TILE - 1) / TILE > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const uintptr_t in = (uintptr_t)a0 | (uintptr_t)b0 | (uintptr_t)splits |
-                       (nw > 1 ? (uintptr_t)a1 | (uintptr_t)b1 : 0) |
-                       (pay ? (uintptr_t)ap | (uintptr_t)bp : 0);
-  const uintptr_t out =
-      (uintptr_t)o0 | (nw > 1 ? (uintptr_t)o1 : 0) | (pay ? (uintptr_t)op : 0);
+  if ((na + nb + TILE_WIDE - 1) / TILE_WIDE > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  uintptr_t in = (uintptr_t)splits |
+                 (pay ? (uintptr_t)ap | (uintptr_t)bp : 0);
+  uintptr_t out = pay ? (uintptr_t)op : 0;
+  for (int w = 0; w < nw; ++w) {
+    in |= (uintptr_t)a[w] | (uintptr_t)b[w];
+    out |= (uintptr_t)o[w];
+  }
   if ((in & 7) || (out & 15)) return cudaErrorMisalignedAddress;
-  const void* aw[2] = {a0, a1};
-  const void* bw[2] = {b0, b1};
-  void* ow[2] = {o0, o1};
   i64* sp = (i64*)splits;
   cudaStream_t st = (cudaStream_t)stream;
-  if (nw == 1)
-    return pay ? launch<1, true>(aw, ap, na, bw, bp, nb, ow, op, sp, nsplit, st)
-               : launch<1, false>(aw, ap, na, bw, bp, nb, ow, op, sp, nsplit,
-                                  st);
-  return pay ? launch<2, true>(aw, ap, na, bw, bp, nb, ow, op, sp, nsplit, st)
-             : launch<2, false>(aw, ap, na, bw, bp, nb, ow, op, sp, nsplit, st);
+  switch (nw) {
+    case 1:
+      return launch_nw<1>(pay, a, ap, na, b, bp, nb, o, op, sp, nsplit, st);
+    case 2:
+      return launch_nw<2>(pay, a, ap, na, b, bp, nb, o, op, sp, nsplit, st);
+    case 3:
+      return launch_nw<3>(pay, a, ap, na, b, bp, nb, o, op, sp, nsplit, st);
+    case 4:
+      return launch_nw<4>(pay, a, ap, na, b, bp, nb, o, op, sp, nsplit, st);
+    default:
+      return launch_nw<5>(pay, a, ap, na, b, bp, nb, o, op, sp, nsplit, st);
+  }
 }

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from kmtricks_tpu_torch.ops.count_merge import key_words
+
 INT32_MAX = 2**31 - 1
 U32_MAX = 2**32 - 1
 
@@ -20,8 +22,10 @@ def compact_count_rows(part_s, key_s, samp_s, cnt, present, row_head, *,
     """Compact one device's sorted count output to dense rows.
 
     Inputs are :func:`~kmtricks_tpu_torch.ops.count_merge.count_merge_keys`
-    outputs, or a collapsed table's (``cnt`` int64 up to 2^32 - 1).
-    Returns (rows (nrows, 2) int64 of [key, partition], pre (nrows, nsamp)
+    outputs, or a collapsed table's (``cnt`` int64 up to 2^32 - 1);
+    ``key_s`` is one int64 tensor or a tuple of nkw int64 key words, least
+    significant first. Returns (rows (nrows, nkw + 1) int64 of the key
+    words then the partition, pre (nrows, nsamp)
     int32 holding the u32 bit pattern of the pre-merge counts (0 = absent;
     the host reads it with ``.view(np.uint32)``), nrows, maxc, npres) with
     the last three as Python ints. Raises ValueError when nrows exceeds
@@ -34,7 +38,8 @@ def compact_count_rows(part_s, key_s, samp_s, cnt, present, row_head, *,
             f"partition rows ({nrows}) exceed the device compaction budget "
             f"({max_rows} rows); raise --max-memory")
     heads = torch.nonzero(row_head).squeeze(1)
-    rows = torch.stack([key_s[heads], part_s[heads].to(torch.int64)], dim=1)
+    rows = torch.stack([w[heads] for w in key_words(key_s)]
+                       + [part_s[heads].to(torch.int64)], dim=1)
     pres = torch.nonzero(present).squeeze(1)
     npres = int(pres.numel())
     pcnt = cnt[pres].to(torch.int64)

@@ -1,29 +1,40 @@
 """Fused count+merge: raw k-mer occurrences -> counted, merged rows.
 
 Counterpart of ``kmtricks_tpu/ops/count_merge.py`` (packed path, k-mer
-and hash mode, k <= 32): one sort of (partition, key, sample) occurrence
+and hash mode, k <= 128): one sort of (partition, key, sample) occurrence
 tuples, then the segment stage (:mod:`kmtricks_tpu_torch.ops.segscan`)
 turns the sorted runs into per-sample counts, hard-min, solid/rescue
 verdicts and matrix rows.
 
 Sort words are int64 with the top bit clear, fields packed most
 significant first (partition | key | sample); invalid entries take the
-INT64_MAX sentinel, so they sort last under PyTorch's signed order, and
-the validity of a sorted position is its rank against the valid count.
-Layout names follow the JAX package: "k2.<pb>.<kb>" packs into one word
-when part_bits + key_bits + samp_bits <= 63; "k3" (k <= 32, partitions
-<= 16 bits, samples <= 15 bits) takes two words sorted by a stable
-two-pass sort, least significant word first. Window hashes (hash mode)
-embed their partition (hash = XXH64 % window + window * partition), so
-the partition rides no field: "h1" and "h2" (the JAX package's one- and
-two-u32 hash layouts) are both ONE int64 word (hash << samp_bits | sample)
-here, and the partition is decoded as hash // window.
+INT64_MAX sentinel in every word, so they sort last under PyTorch's signed
+order, and the validity of a sorted position is its rank against the
+valid count. Layout names and routing follow the JAX package's u32
+arithmetic, so the port takes a packed layout, or refuses, exactly where
+the JAX package does: "k2.<pb>.<kb>" packs into one word when
+part_bits + key_bits + samp_bits <= 63; "k3" (k <= 32, partitions <= 16
+bits, samples <= 15 bits) takes two words; "kw.<pb>.<kb>.<nw>" (any k,
+``nw`` the JAX package's u32 key words) right-justifies the fields in
+ceil((pb + kb + sb) / 63) words of 63 bits: at most 2 for k <= 32, 3 for
+k <= 64, 4 for k <= 96 and 5 for k <= 128 under the JAX package's bound
+(fewer than 2 + nw u32 words). Several words sort by stable passes, least
+significant word first. Window hashes (hash mode) embed their partition
+(hash = XXH64 % window + window * partition), so the partition rides no
+field: "h1" and "h2" (the JAX package's one- and two-u32 hash layouts)
+are both ONE int64 word (hash << samp_bits | sample) here, and the
+partition is decoded as hash // window.
+
+Keys are one int64 tensor (k <= 32, window hashes) or a tuple of int64
+words, least significant first (wide k-mers, ``ops/encode.py::
+encode_batch_wide``); "kw" layouts decode them as such a tuple.
 """
 
 from __future__ import annotations
 
 import torch
 
+from kmtricks_tpu_torch.ops.encode import device_key_words
 from kmtricks_tpu_torch.ops.segscan import INT32_MAX, segment_stage
 from kmtricks_tpu_torch.ops.u64 import shr
 
@@ -43,49 +54,66 @@ def hash_key_bits(window_bits: int, nb_parts: int) -> int:
 def packed_layout(nsamp: int, key_bits: int, part_bits: int | None,
                   part_follows_keys: bool = False) -> str:
     """The JAX package's packed layout for keys of ``key_bits`` (2k k-mer
-    bits, k <= 32, with ``part_bits`` partition bits; or window hashes,
-    ``part_follows_keys``); raises for layouts this package has not
-    ported."""
+    bits with ``part_bits`` partition bits; or window hashes,
+    ``part_follows_keys``); raises NotImplementedError where the JAX
+    package's ``packed_layout`` returns None (it takes the host-aggregated
+    ``stage_mesh_chunked`` there, which is not ported)."""
     sb = _samp_bits(nsamp)
     if part_follows_keys:
-        if key_bits + sb <= 63:
+        if 1 + key_bits + sb <= 64:
             return "h1" if 1 + key_bits + sb <= 32 else "h2"
         raise NotImplementedError(
             f"{key_bits}-bit window hashes with {nsamp} samples do not pack "
-            "into one sort word; the JAX package's generic sort path is "
-            "ROADMAP slice 4 of the port")
-    if 1 + part_bits + key_bits + sb <= 64:
-        return f"k2.{part_bits}.{key_bits}"
-    if sb <= 15 and part_bits <= 16:
-        return "k3"
+            "into one sort word (the JAX package's stage_mesh_chunked is "
+            "not ported)")
+    nw = device_key_words(key_bits // 2)
+    if nw == 2:
+        if 1 + part_bits + key_bits + sb <= 64:
+            return f"k2.{part_bits}.{key_bits}"
+        if sb <= 15 and part_bits <= 16:
+            return "k3"
+    if part_bits <= 31 and -(-(1 + part_bits + key_bits + sb) // 32) < 2 + nw:
+        return f"kw.{part_bits}.{key_bits}.{nw}"
     raise NotImplementedError(
-        f"no ported sort layout for {nsamp} samples, {part_bits} partition "
-        f"bits and {key_bits} key bits (the kw and generic layouts are "
-        "ROADMAP slice 4 of the port)")
+        f"no packed sort layout for {nsamp} samples, {part_bits} partition "
+        f"bits and {key_bits} key bits (the JAX package's stage_mesh_chunked "
+        "is not ported)")
 
 
 def stream_layout(k: int, nb_parts: int, nsamp: int, mode: str = "kmer",
                   window_bits: int | None = None) -> str:
     """The streaming engine's packed layout (counterpart of
-    ``kmtricks_tpu/parallel/pipeline.py::stream_layout``, k <= 32): from
-    :func:`packed_layout`, which raises for layouts that do not pack (the
-    JAX package takes ``stage_mesh_chunked`` for those)."""
+    ``kmtricks_tpu/parallel/pipeline.py::stream_layout``): from
+    :func:`packed_layout`, which raises where the JAX package's returns
+    None."""
     if mode == "hash":
         return packed_layout(nsamp, hash_key_bits(window_bits, nb_parts),
                              None, part_follows_keys=True)
     return packed_layout(nsamp, 2 * k, (nb_parts - 1).bit_length())
 
 
-def _layout_words(layout: str) -> int:
+def _kw_params(layout: str, nsamp: int):
+    """(part_bits, key_bits, int64 key words, the JAX package's u32 sort
+    words, int64 sort words) of a "kw.<pb>.<kb>.<nw>" layout."""
+    _, pb, kb, nw = layout.split(".")
+    pb, kb, nw = int(pb), int(kb), int(nw)
+    total = pb + kb + _samp_bits(nsamp)
+    return pb, kb, nw // 2, -(-(1 + total) // 32), -(-total // 63)
+
+
+def _layout_words(layout: str, nsamp: int) -> int:
     """The JAX package's u32 word count of the layout (1 for h1, 2 for h2
-    and k2, 3 for k3), which its table budget is written in; the port's
-    int64 layouts take one word (k3: two)."""
+    and k2, 3 for k3, ``_kw_params``' for kw), which its table budget is
+    written in; the port's int64 layouts take one word (k3: two; kw:
+    ceil(bits / 63))."""
     if layout == "h1":
         return 1
     if layout == "h2" or layout.startswith("k2."):
         return 2
     if layout == "k3":
         return 3
+    if layout.startswith("kw."):
+        return _kw_params(layout, nsamp)[3]
     raise NotImplementedError(layout)
 
 
@@ -94,10 +122,49 @@ def _k2_params(layout: str):
     return int(pb), int(kb)
 
 
+def key_words(keys) -> tuple:
+    """Keys as a tuple of int64 words, least significant first."""
+    return (keys,) if isinstance(keys, torch.Tensor) else tuple(keys)
+
+
+def _kw_fields(layout: str, nsamp: int):
+    """(offset, width) of the sample, each key word (least significant
+    first) and the partition in a kw layout's packed integer."""
+    sb = _samp_bits(nsamp)
+    pb, kb, nkw, _nwords, n64 = _kw_params(layout, nsamp)
+    keys = [(sb + 64 * i, min(64, kb - 64 * i)) for i in range(nkw)]
+    return (0, sb), keys, (sb + kb, pb), n64
+
+
+def _bits_at(fields, lo: int) -> torch.Tensor:
+    """Bits [lo, lo + 63) of the integer made of non-overlapping
+    ``fields`` (value, offset, width <= 64), as a 63-bit int64 word."""
+    out = None
+    for v, o, w in fields:
+        if w <= 0 or o >= lo + 63 or o + w <= lo:
+            continue
+        part = v << (o - lo) if o >= lo else shr(v, lo - o)
+        out = part if out is None else out | part
+    return out & INT64_MAX
+
+
+def _bits_from(digits, a: int, w: int) -> torch.Tensor:
+    """Bits [a, a + w), w <= 64, of the integer whose 63-bit digits are
+    ``digits`` (least significant first)."""
+    out = torch.zeros_like(digits[0])
+    for d, x in enumerate(digits):
+        lo = 63 * d
+        if lo >= a + w or lo + 63 <= a:
+            continue
+        out |= x << (lo - a) if lo >= a else shr(x, a - lo)
+    return out & ((1 << w) - 1) if w < 64 else out
+
+
 def pack_words(layout: str, part, keys, samp, valid, nsamp: int):
     """Pack (N,) occurrences into the layout's int64 sort words (most
-    significant first). ``keys`` are int64 canonical k-mers or window
-    hashes (``part`` unused); invalid entries take the INT64_MAX sentinel
+    significant first). ``keys``: canonical k-mers (one int64 tensor, or
+    wide k-mers' words least significant first) or window hashes
+    (``part`` unused); invalid entries take the INT64_MAX sentinel
     (``valid=None``: all valid)."""
     sb = _samp_bits(nsamp)
     part = part.to(torch.int64)
@@ -109,6 +176,12 @@ def pack_words(layout: str, part, keys, samp, valid, nsamp: int):
         words = ((part << (kb + sb)) | (keys << sb) | samp,)
     elif layout == "k3":
         words = ((part << 32) | shr(keys, 32), ((keys & _LO32) << sb) | samp)
+    elif layout.startswith("kw."):
+        (so, sw), kf, (po, pw), n64 = _kw_fields(layout, nsamp)
+        fields = ([(samp, so, sw), (part, po, pw)]
+                  + [(v, o, w) for v, (o, w) in zip(key_words(keys), kf)])
+        words = tuple(_bits_at(fields, 63 * d)
+                      for d in reversed(range(n64)))
     else:
         raise NotImplementedError(layout)
     if valid is None:
@@ -117,22 +190,26 @@ def pack_words(layout: str, part, keys, samp, valid, nsamp: int):
 
 
 def sort_packed(layout: str, words):
-    """Ascending sort of the packed words (lexicographic over the tuple)."""
+    """Ascending sort of the packed words (lexicographic over the tuple):
+    one sort for one word, else stable sorts least significant word
+    first, each carrying the permutation so far."""
     if len(words) == 1:
         return (torch.sort(words[0]).values,)
-    hi, lo = words
-    lo_s, perm = torch.sort(lo, stable=True)
-    hi_s, perm2 = torch.sort(hi[perm], stable=True)
-    return hi_s, lo_s[perm2]
+    perm = None
+    for w in reversed(words):
+        p = torch.sort(w if perm is None else w[perm], stable=True).indices
+        perm = p if perm is None else perm[p]
+    return tuple(w[perm] for w in words)
 
 
 def unpack_sorted(layout: str, ws, nsamp: int, n_valid,
                   window_bits: int | None = None):
-    """Sorted words -> (part_s int32, key_s int64, samp_s int32, valid_s,
-    occ_d, kd). Fields are 0 at invalid positions; ``occ_d``/``kd`` are the
-    (N-1,) changes of adjacent entries at (key, sample) and key
-    granularity, computed from the decoded fields. Hash layouts decode the
-    partition as key // ``window_bits``."""
+    """Sorted words -> (part_s int32, key_s, samp_s int32, valid_s,
+    occ_d, kd). ``key_s`` is one int64 tensor, or for kw layouts a tuple
+    of int64 words, least significant first. Fields are 0 at invalid
+    positions; ``occ_d``/``kd`` are the (N-1,) changes of adjacent entries
+    at (key, sample) and key granularity, computed from the decoded
+    fields. Hash layouts decode the partition as key // ``window_bits``."""
     sb = _samp_bits(nsamp)
     n = ws[0].shape[0]
     valid_s = torch.arange(n, device=ws[0].device) < n_valid
@@ -153,16 +230,28 @@ def unpack_sorted(layout: str, ws, nsamp: int, n_valid,
         samp = lo & smask
         key = (hi << 32) | (lo >> sb)
         part = hi >> 32
+    elif layout.startswith("kw."):
+        (so, sw), kf, (po, pw), _n64 = _kw_fields(layout, nsamp)
+        digits = ws[::-1]
+        samp = _bits_from(digits, so, sw)
+        key = tuple(_bits_from(digits, o, w) for o, w in kf)
+        part = _bits_from(digits, po, pw) if pw else torch.zeros_like(samp)
     else:
         raise NotImplementedError(layout)
     part_s = torch.where(valid_s, part, 0).to(torch.int32)
-    key_s = torch.where(valid_s, key, 0)
     samp_s = torch.where(valid_s, samp, 0).to(torch.int32)
 
     def change(x):
         return x[1:] != x[:-1]
 
-    kd = change(valid_s) | change(part_s) | change(key_s)
+    kd = change(valid_s) | change(part_s)
+    if isinstance(key, tuple):
+        key_s = tuple(torch.where(valid_s, x, 0) for x in key)
+        for x in key_s:
+            kd |= change(x)
+    else:
+        key_s = torch.where(valid_s, key, 0)
+        kd |= change(key_s)
     occ_d = kd | change(samp_s)
     return part_s, key_s, samp_s, valid_s, occ_d, kd
 
@@ -184,15 +273,17 @@ def count_merge_keys(part, keys, samp, valid, amin_vec, *, nsamp: int,
                      window_bits: int | None = None):
     """Count and merge raw occurrences in one sort + segment stage.
 
-    part (N,) int32, keys (N,) int64 canonical k-mers (or window hashes of
-    ``key_bits`` bits with ``part_follows_keys`` and ``window_bits``; the
-    partition is then decoded from the hash), samp (N,) int32,
-    valid (N,) bool, amin_vec (nsamp,) int32 soft-min thresholds; optional
-    per-sample int32 ``hard_min_vec`` (both as
-    :func:`~kmtricks_tpu_torch.convert.from_jax_inputs` makes them, u32
-    values saturated at INT32_MAX). Returns, all sorted by (partition, key,
-    sample) with padding last: (part_s int32, key_s int64, samp_s int32,
-    final int32, cnt int32, present, row_head, row_keep, row_of int32) —
+    part (N,) int32, keys (N,) int64 canonical k-mers, or their words
+    least significant first for k > 32 (or window hashes of ``key_bits``
+    bits with ``part_follows_keys`` and ``window_bits``; the partition is
+    then decoded from the hash), samp (N,) int32, valid (N,) bool,
+    amin_vec (nsamp,) int32 soft-min thresholds; optional per-sample int32
+    ``hard_min_vec`` (both as :func:`~kmtricks_tpu_torch.convert.
+    from_jax_inputs` makes them, u32 values saturated at INT32_MAX).
+    Returns, all sorted by (partition, key, sample) with padding last:
+    (part_s int32, key_s (int64, or a tuple of int64 words in a kw layout),
+    samp_s int32, final int32, cnt int32, present, row_head, row_keep,
+    row_of int32) —
     the JAX ``count_merge_keys`` outputs without the statistics, which the
     compacted path rebuilds on the host.
     """

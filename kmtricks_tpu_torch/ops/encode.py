@@ -1,14 +1,20 @@
 """Encode: ASCII read batches -> canonical k-mers, minimizers, partitions.
 
-Counterpart of ``kmtricks_tpu/ops/encode.py`` for k <= 32, with the same
-semantics (byte-identical matrices follow from them):
+Counterpart of ``kmtricks_tpu/ops/encode.py`` (``encode_batch``,
+``encode_batch_wide``, ``device_key_words``, ``pack_2bit_host``,
+``unpack_2bit``), with the same semantics (byte-identical matrices follow
+from them):
 
 * codes via ``(ascii >> 1) & 3`` (A=0, C=1, T=2, G=3), valid iff in "ACGTacgt"
-* canonical k-mer = unsigned min(fwd, revcomp) of the 2-bit packing, held
-  here as ONE int64 key instead of a (hi, lo) u32 pair
+* canonical k-mer = unsigned min(fwd, revcomp) of the 2-bit packing: ONE
+  int64 key for k <= 32 (instead of a (hi, lo) u32 pair), and for
+  32 < k <= 128 the reference's span storage (64, 96 or 128 nt) as 2, 3 or
+  4 int64 words, least significant first (the host's (N, slots)
+  little-endian u64 rows)
 * minimizer = min over the window's masked canonical m-mers (sentinel
   4^m - 1 for forbidden "AA-after-front" m-mers)
-* partition = repart_table[minimizer]
+* partition = repart_table[minimizer], or XXH64(minimizer) % P under
+  ``--static-repart`` (``static_parts``)
 
 Batches are (B, L); the JAX package's (L, B) layout is a TPU sublane trick
 and has no counterpart here.
@@ -16,9 +22,10 @@ and has no counterpart here.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from kmtricks_tpu_torch.ops.u64 import s64, shr, umin
+from kmtricks_tpu_torch.ops.u64 import lt_words, s64, shr, shr_words, umin
 
 _AAAA = s64(0xAAAAAAAAAAAAAAAA)
 _REV_STEPS = ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
@@ -33,6 +40,46 @@ def ascii_to_codes(batch: torch.Tensor):
     for c in b"ACGTacgt":
         valid |= batch == c
     return codes, valid
+
+
+def pack_2bit_host(batch: np.ndarray):
+    """(B, L) ASCII rows -> (packed (B, L/4) u8, vbits (B, L/8) u8) on the
+    host (copy of the JAX package's ``pack_2bit_host``): the code of
+    position p in bits [2 (p % 4), 2 (p % 4) + 2) of packed[:, p // 4], its
+    validity in bit p % 8 of vbits[:, p // 8]. L must be a multiple of 8."""
+    B, L = batch.shape
+    assert L % 8 == 0
+    codes = ((batch >> 1) & 3).astype(np.uint8)
+    packed = (codes[:, 0::4] | (codes[:, 1::4] << 2)
+              | (codes[:, 2::4] << 4) | (codes[:, 3::4] << 6))
+    valid = ((batch == 65) | (batch == 67) | (batch == 71) | (batch == 84)
+             | (batch == 97) | (batch == 99) | (batch == 103)
+             | (batch == 116))
+    vbits = np.packbits(valid, axis=1, bitorder="little")
+    return packed, vbits
+
+
+def unpack_2bit(packed: torch.Tensor, vbits: torch.Tensor):
+    """Device twin of :func:`pack_2bit_host`: (B, L/4) and (B, L/8) uint8
+    -> (codes (B, L) int64, valid (B, L) bool)."""
+    B = packed.shape[0]
+    p = packed.to(torch.int64)
+    codes = torch.stack([(p >> (2 * j)) & 3 for j in range(4)],
+                        dim=2).reshape(B, -1)
+    valid = torch.stack([(vbits >> j) & 1 for j in range(8)],
+                        dim=2).reshape(B, -1).to(torch.bool)
+    return codes, valid
+
+
+def _roll_in(codes: torch.Tensor, start: int, n: int, W: int):
+    """(B, W) int64: the ``n`` <= 32 codes from ``start`` of each window
+    packed most significant first, rolled in over n slices in place on one
+    buffer."""
+    out = codes[:, start:start + W].clone()
+    for j in range(1, n):
+        out.bitwise_left_shift_(2).bitwise_or_(codes[:, start + j:
+                                                     start + j + W])
+    return out
 
 
 def _rev2bit64(x: torch.Tensor) -> torch.Tensor:
@@ -53,6 +100,39 @@ def revcomp64(kmer: torch.Tensor, k: int) -> torch.Tensor:
 
 def canonical64(kmer: torch.Tensor, k: int) -> torch.Tensor:
     return umin(kmer, revcomp64(kmer, k))
+
+
+def device_key_words(k: int) -> int:
+    """The JAX package's msb-first u32 key words of a k-mer: the span is
+    the smallest of {32, 64, 96, 128} holding k (loop_executor.hpp:23-70 /
+    KMER_LIST), two u32 words per 32-nt span word; the port holds half as
+    many int64 words."""
+    if not 0 < k <= 128:
+        raise NotImplementedError(f"k = {k}: k-mers hold at most 128 nt")
+    span = next(s for s in (32, 64, 96, 128) if k <= s)
+    return span // 16
+
+
+def forward_words(codes: torch.Tensor, k: int, W: int, nwords: int):
+    """Forward k-mers of the (B, W) windows as ``nwords`` int64 words,
+    least significant first: word w holds codes k-32w-32 .. k-1-32w of the
+    window, each word rolled in on its own (k shift-or passes in all).
+    The span's top word is never empty: k > 32 * (nwords - 1)."""
+    words = []
+    for w in range(nwords):
+        hi = k - 1 - 32 * w
+        lo = max(0, hi - 31)
+        words.append(_roll_in(codes, lo, hi - lo + 1, W))
+    return words
+
+
+def revcomp_words(fwd, k: int):
+    """Reverse complement of the span storage (32 nt per word): reverse
+    the 2-bit groups of every word and the word order, complement, then
+    realign right by 2 * (span - k) (kmer.hpp rev_comp)."""
+    nw = len(fwd)
+    rc = [_rev2bit64(fwd[nw - 1 - i]) ^ _AAAA for i in range(nw)]
+    return shr_words(rc, 2 * (32 * nw - k))
 
 
 def mmer_canonical(v: torch.Tensor, m: int) -> torch.Tensor:
@@ -93,38 +173,72 @@ def _window_validity(char_valid: torch.Tensor, lengths: torch.Tensor,
     return clean & (pos[None, :] + k <= lengths[:, None])
 
 
-def _minimizer_partitions(codes: torch.Tensor, repart_table: torch.Tensor,
-                          k: int, m: int,
-                          canonical_mmers: bool = True) -> torch.Tensor:
-    """Per-window minimizers -> int32 partition ids (table gather)."""
-    Wm = codes.shape[1] - m + 1
-    mv = codes[:, :Wm].clone()
-    for j in range(1, m):
-        mv.bitwise_left_shift_(2).bitwise_or_(codes[:, j:j + Wm])
+def masked_mmers(codes: torch.Tensor, m: int,
+                 canonical_mmers: bool = True) -> torch.Tensor:
+    """(B, L - m + 1) int64: each m-mer's value (canonical unless told
+    otherwise), forbidden ones replaced by the sentinel 4^m - 1."""
+    mv = _roll_in(codes, 0, m, codes.shape[1] - m + 1)
     mc = mmer_canonical(mv, m) if canonical_mmers else mv
-    masked = torch.where(mmer_allowed(mc, m), mc, (1 << (2 * m)) - 1)
-    minim = sliding_min(masked, k - m + 1)
+    return torch.where(mmer_allowed(mc, m), mc, (1 << (2 * m)) - 1)
+
+
+def _minimizer_partitions(codes: torch.Tensor, repart_table: torch.Tensor,
+                          k: int, m: int, canonical_mmers: bool = True,
+                          static_parts: int | None = None) -> torch.Tensor:
+    """Per-window minimizers -> int32 partition ids: the table gather, or
+    XXH64(minimizer) % ``static_parts`` (--static-repart)."""
+    minim = sliding_min(masked_mmers(codes, m, canonical_mmers), k - m + 1)
+    if static_parts is not None:
+        from kmtricks_tpu_torch.ops.xxh64 import static_partitions
+        return static_partitions(minim, static_parts)
     return repart_table[minim].to(torch.int32)
 
 
 def encode_batch(batch: torch.Tensor, lengths: torch.Tensor,
                  repart_table: torch.Tensor, k: int, m: int,
-                 mmer_canonical: bool = True):
-    """Encode a (B, L) uint8 read batch into routed canonical k-mers.
+                 mmer_canonical: bool = True,
+                 static_parts: int | None = None):
+    """Encode a (B, L) uint8 read batch into routed canonical k-mers
+    (k <= 32; :func:`encode_batch_wide` takes larger k).
 
-    ``lengths`` (B,) int32 read lengths; ``repart_table`` (4^m,) int32.
-    Returns (keys (B, W) int64 canonical k-mers, parts (B, W) int32,
-    valid (B, W) bool), W = L - k + 1.
+    ``lengths`` (B,) int32 read lengths; ``repart_table`` (4^m,) int32
+    (unused under ``static_parts`` = nb_partitions). Returns (keys (B, W)
+    int64 canonical k-mers, parts (B, W) int32, valid (B, W) bool),
+    W = L - k + 1.
     """
     if not 0 < k <= 32:
-        raise NotImplementedError(f"k = {k}: only k <= 32 is ported")
+        raise NotImplementedError(f"k = {k}: encode_batch takes k <= 32 "
+                                  "(encode_batch_wide the rest)")
     codes, char_valid = ascii_to_codes(batch)
     W = batch.shape[1] - k + 1
     valid = _window_validity(char_valid, lengths, k)
-    # forward k-mers rolled in over k slices, in place on one buffer
-    fwd = codes[:, :W].clone()
-    for j in range(1, k):
-        fwd.bitwise_left_shift_(2).bitwise_or_(codes[:, j:j + W])
-    keys = canonical64(fwd, k)
-    parts = _minimizer_partitions(codes, repart_table, k, m, mmer_canonical)
+    keys = canonical64(_roll_in(codes, 0, k, W), k)
+    parts = _minimizer_partitions(codes, repart_table, k, m, mmer_canonical,
+                                  static_parts)
+    return keys, parts, valid
+
+
+def encode_batch_wide(batch: torch.Tensor, lengths: torch.Tensor,
+                      repart_table: torch.Tensor, k: int, m: int,
+                      mmer_canonical: bool = True,
+                      static_parts: int | None = None):
+    """Encode for 32 < k <= 128: canonical k-mers as the reference's span
+    storage, ``device_key_words(k) // 2`` int64 words (2 for k <= 64, 3
+    for k <= 96, 4 for k <= 128), least significant first. Returns (keys
+    tuple of (B, W) int64, parts (B, W) int32, valid (B, W) bool), as
+    :func:`encode_batch`."""
+    if not 32 < k <= 128:
+        raise NotImplementedError(f"k = {k}: encode_batch_wide takes "
+                                  "32 < k <= 128")
+    nwords = device_key_words(k) // 2
+    codes, char_valid = ascii_to_codes(batch)
+    W = batch.shape[1] - k + 1
+    valid = _window_validity(char_valid, lengths, k)
+    fwd = forward_words(codes, k, W, nwords)
+    rc = revcomp_words(fwd, k)
+    take_rc = lt_words(rc, fwd)
+    keys = tuple(torch.where(take_rc, r, f) for r, f in zip(rc, fwd))
+    del fwd, rc, take_rc
+    parts = _minimizer_partitions(codes, repart_table, k, m, mmer_canonical,
+                                  static_parts)
     return keys, parts, valid

@@ -5,7 +5,7 @@ kernels ``_merge_kernel`` (K3, one u32 word, via
 ``merge_sorted_runs_u32``) and ``_merge_kernel_mw`` (K4, tuples of u32
 words, via ``merge_sorted_runs_words``).
 
-A run is ``(words, payload)``: ``words`` a tuple of 1 or 2 int64 key
+A run is ``(words, payload)``: ``words`` a tuple of 1 to 5 int64 key
 tensors (most significant first, compared lexicographically as signed
 int64, the order ``torch.sort`` uses), ``payload`` an int64 tensor of the
 same length or None. Runs are exactly sized and may be empty. Equal keys
@@ -21,9 +21,13 @@ the other.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from kmtricks_tpu_torch._build import MERGE_TILE, merge_runs_lib
+from kmtricks_tpu_torch._build import merge_runs_lib, merge_tile
+
+MAX_WORDS = 5       # the kw layouts' int64 sort words at k <= 128
 
 # kernel launches, counted where the wrapper launches them: each pairwise
 # merge is one partition launch (``*_split``) and one merge launch
@@ -52,8 +56,9 @@ def _check_runs(runs):
         raise ValueError("merge_sorted_runs: no runs")
     nw = len(runs[0][0])
     has_payload = runs[0][1] is not None
-    if nw not in (1, 2):
-        raise ValueError(f"merge_sorted_runs: {nw} key words (1 or 2)")
+    if not 1 <= nw <= MAX_WORDS:
+        raise ValueError(f"merge_sorted_runs: {nw} key words (1 to "
+                         f"{MAX_WORDS})")
     dev = runs[0][0][0].device
     for words, payload in runs:
         n = words[0].shape[0]
@@ -109,11 +114,11 @@ def _merge_tree_cuda(runs, dev):
     return tuple(level[0][0]), level[0][1]
 
 
-def split_scratch(n: int, dev) -> torch.Tensor:
+def split_scratch(n: int, dev, tile: int) -> torch.Tensor:
     """The partition's output: the merge-path split at each of the
-    ceil(n / MERGE_TILE) + 1 tile boundaries of an n-element merge."""
-    return torch.empty(-(-n // MERGE_TILE) + 1, dtype=torch.int64,
-                       device=dev)
+    ceil(n / tile) + 1 tile boundaries of an n-element merge, ``tile``
+    the merge kernel's (``_build.merge_tile`` of its staged arrays)."""
+    return torch.empty(-(-n // tile) + 1, dtype=torch.int64, device=dev)
 
 
 def _merge_two_cuda(a, b, lib, stream):
@@ -131,12 +136,13 @@ def _merge_two_cuda(a, b, lib, stream):
                for _ in range(nw))
     op = None if ap is None else torch.empty(na + nb, dtype=torch.int64,
                                              device=dev)
-    splits = split_scratch(na + nb, dev)    # referenced until after launch
+    # referenced until after the launch
+    splits = split_scratch(na + nb, dev, merge_tile(nw + (op is not None)))
 
     def ptrs(words, payload):
-        """Two word pointers (the second None for one word), payload's."""
-        return ([w.data_ptr() for w in words] + [None])[:2] + [
-            None if payload is None else payload.data_ptr()]
+        """The key words' pointer array, the payload's pointer."""
+        return ((ctypes.c_void_p * nw)(*(w.data_ptr() for w in words)),
+                None if payload is None else payload.data_ptr())
 
     err = lib.km_merge_runs(nw, *ptrs(aw, ap), na, *ptrs(bw, bp), nb,
                             *ptrs(ow, op), splits.data_ptr(), splits.numel(),

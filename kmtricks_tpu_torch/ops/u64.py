@@ -11,6 +11,9 @@ which needs three corrections against PyTorch's signed semantics:
 * ``int64 <<``, ``+`` and ``*`` wrap mod 2^64, as u64 does;
 * ``%`` and ``//`` are signed and floor-based, so the unsigned remainder
   (:func:`mod_const`) works on the low 63 bits and adds bit 63 back.
+
+Wide k-mers (k > 32) are lists of such words, least significant first
+(:func:`shr_words`, :func:`lt_words`).
 """
 
 from __future__ import annotations
@@ -39,9 +42,44 @@ def flip(x: torch.Tensor) -> torch.Tensor:
     return x ^ SIGN
 
 
+def ult(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise unsigned ``a < b`` of int64 bit patterns."""
+    return flip(a) < flip(b)
+
+
 def umin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise unsigned minimum of int64 bit patterns."""
-    return torch.where(flip(a) < flip(b), a, b)
+    return torch.where(ult(a, b), a, b)
+
+
+# Multi-word integers: lists of int64 words, least significant first (the
+# (N, slots) little-endian u64 rows of the host k-mer layout)
+
+def shr_words(words, s: int):
+    """Logical right shift of a multi-word integer by a constant s >= 0
+    (counterpart of ``kmtricks_tpu/ops/encode.py::_shr_words``)."""
+    nw = len(words)
+    q, r = divmod(s, 64)
+    out = []
+    for i in range(nw):
+        if i + q >= nw:
+            out.append(torch.zeros_like(words[0]))
+            continue
+        v = shr(words[i + q], r)
+        if r and i + q + 1 < nw:
+            v = v | (words[i + q + 1] << (64 - r))
+        out.append(v)
+    return out
+
+
+def lt_words(a, b) -> torch.Tensor:
+    """Unsigned lexicographic ``a < b`` of two multi-word integers (a
+    per-word ``umin`` is not lexicographic; bit 63 is set in half of all
+    keys)."""
+    lt = torch.zeros(a[0].shape, dtype=torch.bool, device=a[0].device)
+    for x, y in zip(a, b):        # least significant first: later words win
+        lt = torch.where(x != y, ult(x, y), lt)
+    return lt
 
 
 def rotl(x: torch.Tensor, r: int) -> torch.Tensor:

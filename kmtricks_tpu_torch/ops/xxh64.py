@@ -1,13 +1,12 @@
 """XXH64 and the counting window hash on int64 tensors.
 
-Counterpart of ``kmtricks_tpu/ops/xxh64.py`` (``xxh64``, ``window_hash``):
-a bit-exact XXH64(words, 8 * S, seed) over S 64-bit words, the reference
-counting hash (gatb/sorting_count.hpp:347-363), with each u64 held in one
-int64 tensor (:mod:`kmtricks_tpu_torch.ops.u64`) instead of a (hi, lo)
-u32 pair. Plain elementwise torch, as the JAX version is plain XLA.
-
-``xxh64_u32`` / ``static_partitions`` (``--static-repart``) are not
-ported yet (ROADMAP slice 4).
+Counterpart of ``kmtricks_tpu/ops/xxh64.py`` (``xxh64``, ``xxh64_u32``,
+``static_partitions``, ``window_hash``): a bit-exact XXH64(words, 8 * S,
+seed) over S 64-bit words, the reference counting hash
+(gatb/sorting_count.hpp:347-363), and the 4-byte XXH64 of the static
+repartition, with each u64 held in one int64 tensor
+(:mod:`kmtricks_tpu_torch.ops.u64`) instead of a (hi, lo) u32 pair. Plain
+elementwise torch, as the JAX version is plain XLA.
 """
 
 from __future__ import annotations
@@ -72,11 +71,31 @@ def xxh64(words, seed: int = 0) -> torch.Tensor:
     return _avalanche(h)
 
 
-def window_hash(keys: torch.Tensor, parts: torch.Tensor,
+def xxh64_u32(values: torch.Tensor, seed: int = 0) -> torch.Tensor:
+    """XXH64 of one little-endian u32 (a 4-byte input) per element, the
+    static repartition hash (repartition.hpp:45-56); ``values`` hold the
+    u32 in their low 32 bits. Returns the hash's u64 bits as int64."""
+    h = torch.full(values.shape, s64(seed + P5 + 4), dtype=torch.int64,
+                   device=values.device)
+    h = h ^ mul_const(values.to(torch.int64) & 0xFFFFFFFF, P1)
+    h = mul_const(rotl(h, 23), P2) + s64(P3)
+    return _avalanche(h)
+
+
+def static_partitions(minim: torch.Tensor, nb_parts: int) -> torch.Tensor:
+    """``--static-repart``: partition = XXH64(minimizer u32) % nb_parts,
+    computed instead of gathered; equal to ``Repartition.from_xxh``'s
+    table for every minimizer. int32 out."""
+    return mod_const(xxh64_u32(minim), nb_parts).to(torch.int32)
+
+
+def window_hash(keys, parts: torch.Tensor,
                 window_bits: int) -> torch.Tensor:
     """The counting hash: XXH64(kmer) % window + window * partition, for
-    int64 canonical k-mers (k <= 32) and their partitions; int64 out.
-    ``window_bits`` (the window size in bits) times the partition count
-    stays below 2^63 (HashWindow bounds the Bloom size)."""
+    canonical k-mers (one int64 tensor for k <= 32, or the span's words
+    least significant first, which XXH64 reads as the k-mer's little-endian
+    storage) and their partitions; int64 out. ``window_bits`` (the window
+    size in bits) times the partition count stays below 2^63 (HashWindow
+    bounds the Bloom size)."""
     return mod_const(xxh64(keys), window_bits) + \
         parts.to(torch.int64) * window_bits

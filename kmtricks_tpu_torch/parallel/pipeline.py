@@ -1,7 +1,7 @@
 """Device steps on one GPU: reads -> dense count rows.
 
 Counterparts of ``kmtricks_tpu/parallel/pipeline.py`` (k-mer and hash
-mode, k <= 32), as plain functions on tensors (no mesh, no collective):
+mode, k <= 128), as plain functions on tensors (no mesh, no collective):
 
 * :func:`build_single_chip_step` (``build_single_chip_step``): encode
   (and the window hash), count+merge (sort and segment stage), then
@@ -21,9 +21,28 @@ from kmtricks_tpu_torch.ops.compact import compact_count_rows
 from kmtricks_tpu_torch.ops.count_merge import (
     count_merge_keys, hash_key_bits, pack_words, sort_packed, stream_layout,
     unpack_sorted)
-from kmtricks_tpu_torch.ops.encode import encode_batch
+from kmtricks_tpu_torch.ops.encode import encode_batch, encode_batch_wide
 from kmtricks_tpu_torch.ops.table import chunk_count_pairs, merge_pair_streams
 from kmtricks_tpu_torch.ops.xxh64 import window_hash
+
+
+def _on_words(keys, f):
+    """``f`` applied to one key tensor, or to each word of wide keys."""
+    if isinstance(keys, torch.Tensor):
+        return f(keys)
+    return tuple(f(w) for w in keys)
+
+
+def encode(batch, lengths, repart_table, *, k: int, m: int,
+           mmer_canonical: bool = True, static_parts: int | None = None):
+    """The encode of the JAX package's ``_encode_flat``: ``encode_batch``
+    for k <= 32 (keys one (B, W) int64 tensor), ``encode_batch_wide``
+    beyond (keys a tuple of (B, W) int64 words, least significant first);
+    ``static_parts`` = nb_partitions computes --static-repart partitions
+    instead of gathering them from ``repart_table``."""
+    enc = encode_batch if k <= 32 else encode_batch_wide
+    return enc(batch, lengths, repart_table, k, m,
+               mmer_canonical=mmer_canonical, static_parts=static_parts)
 
 
 def build_single_chip_step(*, k: int, m: int, nsamp: int, nb_parts: int,
@@ -31,24 +50,28 @@ def build_single_chip_step(*, k: int, m: int, nsamp: int, nb_parts: int,
                            save_if: int = 0, count_max: int = 0xFFFFFFFF,
                            hard_min_vec=None, mmer_canonical: bool = True,
                            max_rows: int | None = None, mode: str = "kmer",
-                           window_bits: int | None = None):
+                           window_bits: int | None = None,
+                           static_parts: int | None = None):
     """Return ``step(batch, lengths, samp, repart_table, amin_vec)`` over
     tensors on one device (see :func:`~kmtricks_tpu_torch.convert.
     from_jax_inputs`), giving compact_count_rows' (rows, pre, nrows, maxc,
     npres). ``mode="hash"`` counts window hashes of ``window_bits``-bit
-    windows instead of k-mers (the rows' key column holds the hash)."""
+    windows instead of k-mers (the rows' key column holds the hash);
+    ``static_parts`` as :func:`encode`."""
     hashed = mode == "hash"
     key_bits = hash_key_bits(window_bits, nb_parts) if hashed else 2 * k
 
     def step(batch, lengths, samp, repart_table, amin_vec):
-        keys, parts, valid = encode_batch(batch, lengths, repart_table, k, m,
-                                          mmer_canonical=mmer_canonical)
+        keys, parts, valid = encode(batch, lengths, repart_table, k=k, m=m,
+                                    mmer_canonical=mmer_canonical,
+                                    static_parts=static_parts)
         if hashed:
             keys = window_hash(keys, parts, window_bits)
         sampw = samp[:, None].expand(parts.shape).reshape(-1)
         (part_s, key_s, samp_s, _final, cnt, present, row_head, _row_keep,
          _row_of) = count_merge_keys(
-            parts.reshape(-1), keys.reshape(-1), sampw, valid.reshape(-1),
+            parts.reshape(-1), _on_words(keys, lambda w: w.reshape(-1)),
+            sampw, valid.reshape(-1),
             amin_vec, nsamp=nsamp, hard_min=hard_min, rmin=rmin,
             save_if=save_if, count_max=count_max, key_bits=key_bits,
             part_bits=(nb_parts - 1).bit_length(),
@@ -62,7 +85,8 @@ def build_single_chip_step(*, k: int, m: int, nsamp: int, nb_parts: int,
 
 def build_chunk_pairs_step(*, k: int, m: int, nsamp: int, nb_parts: int,
                            mmer_canonical: bool = True, mode: str = "kmer",
-                           window_bits: int | None = None):
+                           window_bits: int | None = None,
+                           static_parts: int | None = None):
     """Return ``step(batch, lengths, samp, repart_table)`` -> one sorted
     pair run (words tuple, cnt int64) of the chunk's valid windows:
     encode (and hash), pack, sort, then :func:`~kmtricks_tpu_torch.ops.
@@ -70,10 +94,11 @@ def build_chunk_pairs_step(*, k: int, m: int, nsamp: int, nb_parts: int,
     layout = stream_layout(k, nb_parts, nsamp, mode, window_bits)
 
     def step(batch, lengths, samp, repart_table):
-        keys, parts, valid = encode_batch(batch, lengths, repart_table, k, m,
-                                          mmer_canonical=mmer_canonical)
+        keys, parts, valid = encode(batch, lengths, repart_table, k=k, m=m,
+                                    mmer_canonical=mmer_canonical,
+                                    static_parts=static_parts)
         sampw = samp[:, None].expand(parts.shape)
-        keys, parts = keys[valid], parts[valid]
+        keys, parts = _on_words(keys, lambda w: w[valid]), parts[valid]
         if mode == "hash":
             keys = window_hash(keys, parts, window_bits)
         words = pack_words(layout, parts, keys, sampw[valid], None, nsamp)

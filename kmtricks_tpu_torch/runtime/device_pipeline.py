@@ -29,6 +29,7 @@ from kmtricks_tpu_torch.convert import from_jax_inputs
 from kmtricks_tpu_torch.core.hashers import HashWindow
 from kmtricks_tpu_torch.host import ops as hops
 from kmtricks_tpu_torch.io import sequences as seqio
+from kmtricks_tpu_torch.ops.encode import device_key_words
 from kmtricks_tpu_torch.parallel.pipeline import build_single_chip_step
 
 log = logging.getLogger("kmtricks_tpu")
@@ -260,24 +261,27 @@ def _load_global_batch(kmdir, opts):
     return batch, lengths, sarr
 
 
-def rows_budget(nsamp: int, max_memory_mb: int) -> int:
+def rows_budget(nsamp: int, max_memory_mb: int, key_words: int = 2) -> int:
     """Device row budget of the compaction (the JAX package's rows_hbm):
-    half of --max-memory over ~4 * (nsamp + 4) bytes per row, at least
-    4M rows, and rows * nsamp < 2^31."""
-    row_bytes = 4 * (nsamp + 4)
+    half of --max-memory over ~4 * (nsamp + key_words + 2) bytes per row
+    (``key_words``: the JAX package's u32 key words, 2 for hashes and
+    k <= 32), at least 4M rows, and rows * nsamp < 2^31."""
+    row_bytes = 4 * (nsamp + key_words + 2)
     rows = max(1 << 22, _pow2ceil(
         int(max_memory_mb * 1e6 / 2 / row_bytes) + 1) // 2)
     return min(rows, _pow2ceil((1 << 31) // max(1, nsamp)) // 2)
 
 
 def fetch_row_keys(rows, cf: str) -> np.ndarray:
-    """The key column of compacted rows ((nrows, 2) int64 of [key,
-    partition] on the device) on the host, in merge_dense's layout:
-    (nrows, 1) u64 k-mers, or (nrows,) u64 window hashes in hash mode
-    (counterpart of the JAX engine's ``_decode_block_keys``; 2-D hash keys
-    would give the bf and hash writers wrong bytes)."""
-    keys = rows[:, 0].contiguous().cpu().numpy().view(np.uint64)
-    return keys if cf == "hash" else keys.reshape(-1, 1)
+    """The key columns of compacted rows ((nrows, slots + 1) int64 of the
+    key words, least significant first, then the partition, on the
+    device) on the host, in merge_dense's layout: (nrows, slots) u64
+    k-mers (the host's little-endian u64 rows), or (nrows,) u64 window
+    hashes in hash mode (counterpart of the JAX package's ``_keys_to_u64``
+    and ``_decode_block_keys``; 2-D hash keys would give the bf and hash
+    writers wrong bytes)."""
+    keys = rows[:, :-1].contiguous().cpu().numpy().view(np.uint64)
+    return keys[:, 0] if cf == "hash" else keys
 
 
 def hash_window_bits(kmdir, cf: str) -> int | None:
@@ -297,6 +301,7 @@ def stage_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
 
     cf = parse_mode(opts.mode)[0]
     nsamp = len(kmdir.fof)
+    key_words = 2 if cf == "hash" else device_key_words(config.kmer_size)
     hard_mins = kmdir.fof.abundance_mins(opts.hard_min)
     # per-sample `! amin` fof overrides ride the fused step directly
     hard_min_vec = (np.asarray(hard_mins, dtype=np.uint32)
@@ -309,8 +314,9 @@ def stage_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
         rmin=opts.recurrence_min, save_if=opts.share_min,
         count_max=(1 << (8 * config.count_bytes)) - 1,
         hard_min_vec=args[5], mmer_canonical=config.mmer_scheme != "forward",
-        max_rows=rows_budget(nsamp, opts.max_memory_mb), mode=cf,
-        window_bits=hash_window_bits(kmdir, cf))
+        max_rows=rows_budget(nsamp, opts.max_memory_mb, key_words), mode=cf,
+        window_bits=hash_window_bits(kmdir, cf),
+        static_parts=config.nb_partitions if opts.static_repart else None)
     log.info("device step: %d reads x %d (windows %d) on %s",
              batch.shape[0], batch.shape[1],
              batch.shape[0] * (batch.shape[1] - config.kmer_size + 1), device)
@@ -318,7 +324,7 @@ def stage_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
     keys = fetch_row_keys(rows, cf)
     pre = pre.cpu().numpy().view(np.uint32)
     # rows are sorted by (partition, key): partition blocks are contiguous
-    bounds = np.searchsorted(rows[:, 1].cpu().numpy(),
+    bounds = np.searchsorted(rows[:, -1].cpu().numpy(),
                              np.arange(config.nb_partitions + 1))
     if int(bounds[-1]) != nrows:
         raise RuntimeError(f"row partitions out of range: {int(bounds[-1])} "

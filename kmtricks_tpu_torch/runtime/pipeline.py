@@ -3,7 +3,8 @@
 Counterpart of ``kmtricks_tpu/runtime/device_pipeline.py::
 run_mesh_pipeline`` on one device, for the slices this package ports:
 every ``--mode`` (k-mer and hash count formats; count, pa, bf, bft and
-bfc; bin and text outputs), k <= 32. It routes as the JAX package does: a
+bfc; bin and text outputs), k <= 128, the repartition tally on the
+device and ``--static-repart``. It routes as the JAX package does: a
 collection that fits one device step takes the fused step
 (:mod:`kmtricks_tpu_torch.runtime.device_pipeline`); a larger one, or a
 run that wants histograms or a float soft-min, takes the streaming engine
@@ -203,8 +204,131 @@ def _sample_batches(kmdir: KmDir, config: Config, bam_filter):
             yield batch[:take], lengths[:take]
 
 
+# reads per block of the device tally; a block holds at most 512 times as
+# many cells (reads x padded length): rows halve as the width bucket
+# grows, so a long-read bank never forces a REPART_BLOCK x max_len block
+# (the JAX package's CELL_BUDGET)
+REPART_BLOCK = 65536
+
+
+def _sample_minimizer_bins_device(kmdir: KmDir, config: Config, device,
+                                  bam_filter=None,
+                                  freq_order=None) -> np.ndarray:
+    """Device SampleRepart (counterpart of the JAX package's
+    ``_sample_minimizer_bins_device``): the first-N sampled reads are
+    gathered into quantized (B, L) blocks on a producer thread, packed to
+    2 bits a base (``pack_2bit_host``) and uploaded (pinned,
+    ``non_blocking``); each block's tally (``ops/repart_sample.py::
+    tally_step``) adds into a (4^m,) int64 table that stays on
+    ``device`` until the end. Bit-equal to the host tally."""
+    import queue as queue_mod
+    import threading
+
+    from kmtricks_tpu_torch.ops import repart_sample as rs
+    from kmtricks_tpu_torch.ops.encode import pack_2bit_host
+
+    k, m = config.kmer_size, config.minim_size
+    device = torch.device(device)
+    block = REPART_BLOCK
+    freq = (None if freq_order is None else torch.from_numpy(
+        np.asarray(freq_order, np.int64)).to(device))
+
+    def bucket_len(maxlen: int) -> int:
+        return max(((maxlen + 127) // 128) * 128, 128)
+
+    def cap_rows(L: int) -> int:
+        B = block
+        while B > 128 and B * L > block * 512:
+            B //= 2
+        return B
+
+    def upload(a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    q: queue_mod.Queue = queue_mod.Queue(maxsize=2)
+    stop = threading.Event()
+
+    def put(item) -> None:
+        """put() that gives up once the consumer has failed (stop set)."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return
+            except queue_mod.Full:
+                continue
+
+    def emit(pieces, nrows, L):
+        """The buffered ``nrows`` reads as one padded (B, L) block: B is
+        the width bucket's cap, or for a last, partial block the power of
+        two that holds its rows (eager torch compiles nothing per shape,
+        so the JAX package's full-cap padding would only add work).
+        Zero-length all-'N' rows tally nothing."""
+        B = min(cap_rows(L), 1 << max(7, (nrows - 1).bit_length()))
+        blk = np.full((B, L), ord("N"), np.uint8)
+        lens = np.zeros(B, np.int32)
+        r = 0
+        for batch, lengths in pieces:
+            n = len(lengths)
+            w = min(batch.shape[1], L)
+            blk[r:r + n, :w] = batch[:, :w]
+            lens[r:r + n] = lengths
+            r += n
+        packed, vbits = pack_2bit_host(blk)
+        put((upload(packed), upload(vbits), upload(lens)))
+
+    def producer():
+        try:
+            pieces, nrows, L = [], 0, 128
+            for batch, lengths in _sample_batches(kmdir, config, bam_filter):
+                bL = bucket_len(batch.shape[1])
+                while len(lengths):
+                    newL = max(L, bL)
+                    cap = cap_rows(newL)
+                    if nrows >= cap:
+                        # widening would overflow this block: flush it at
+                        # the current (narrower) width and start again
+                        emit(pieces, nrows, L)
+                        pieces, nrows, L = [], 0, 128
+                        continue
+                    take = min(len(lengths), cap - nrows)
+                    pieces.append((batch[:take], lengths[:take]))
+                    batch, lengths = batch[take:], lengths[take:]
+                    nrows += take
+                    L = newL
+                    if nrows >= cap_rows(L):
+                        emit(pieces, nrows, L)
+                        pieces, nrows, L = [], 0, 128
+            if nrows:
+                emit(pieces, nrows, L)
+        except BaseException as e:  # noqa: BLE001 - raised by the consumer
+            put(e)
+            return
+        put(None)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    bins = rs.make_bins(m, device)
+    try:
+        while True:
+            item = q.get()
+            if item is None:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            packed, vbits, lens = item
+            rs.tally_step(bins, packed, vbits, lens, k=k, m=m,
+                          freq_table=freq)
+    finally:
+        stop.set()
+    t.join()
+    return bins.cpu().numpy()
+
+
 def sample_minimizer_bins(kmdir: KmDir, config: Config, bam_filter=None,
-                          freq_order=None) -> np.ndarray:
+                          freq_order=None, device=None) -> np.ndarray:
     """Tally sampled KX-MERS per minimizer — the reference's exact LPT
     weights (SampleRepart, RepartitionAlgorithm.cpp:158-243): within each
     superkmer (run of consecutive valid windows sharing a minimizer), a
@@ -212,13 +336,14 @@ def sample_minimizer_bins(kmdir: KmDir, config: Config, bam_filter=None,
     Deterministic: first-N sampling, like the reference's
     CancellableIterator cutoff.
 
-    The host numpy tally (the JAX package's device tally,
-    ``_sample_minimizer_bins_device``, is ROADMAP slice 4). Sampled reads
-    stream through the native batch parser and the batched host kernels
-    as ONE flat code stream per batch — each row gets an appended invalid
-    separator byte, so windows never span reads and the tally is
-    identical to per-sequence processing (the reference fans SampleRepart
-    over a thread pool for the same reason,
+    With a ``device`` and m <= 12, the tally runs there
+    (:func:`_sample_minimizer_bins_device`; plain torch on a CPU device),
+    as the JAX package's does on its accelerator; otherwise the host numpy
+    tally below. Sampled reads stream through the native batch parser
+    and the batched host kernels as ONE flat code stream per batch — each
+    row gets an appended invalid separator byte, so windows never span
+    reads and the tally is identical to per-sequence processing (the
+    reference fans SampleRepart over a thread pool for the same reason,
     RepartitionAlgorithm.cpp:444-475)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -226,6 +351,9 @@ def sample_minimizer_bins(kmdir: KmDir, config: Config, bam_filter=None,
         ASCII_CODE_TABLE, ASCII_VALID_TABLE)
 
     k, m = config.kmer_size, config.minim_size
+    if device is not None and m <= 12:
+        return _sample_minimizer_bins_device(kmdir, config, device,
+                                             bam_filter, freq_order)
 
     nthreads = 4
 
@@ -302,8 +430,11 @@ def compute_mmer_frequencies(kmdir: KmDir, config: Config, bam_filter=None):
     return [(c, i) for c, i in pairs], freq_order
 
 
-def stage_repart(kmdir: KmDir, config: Config,
-                 opts: PipelineOptions) -> Repartition:
+def stage_repart(kmdir: KmDir, config: Config, opts: PipelineOptions,
+                 device=None) -> Repartition:
+    """The run's repartition: reused (--repart-from), static
+    (--static-repart), or from the sampled tally, on ``device`` when one
+    is given (:func:`sample_minimizer_bins`)."""
     if opts.repart_from:
         src = os.path.join(opts.repart_from, "repartition",
                            "repartition.minimRepart")
@@ -320,12 +451,13 @@ def stage_repart(kmdir: KmDir, config: Config,
         pairs, freq_order = compute_mmer_frequencies(kmdir, config,
                                                      opts.bam_filter())
         bins = sample_minimizer_bins(kmdir, config, opts.bam_filter(),
-                                     freq_order)
+                                     freq_order, device)
         rep = Repartition.from_freq_groups(pairs, bins,
                                            config.nb_partitions)
         rep.freq = freq_order.astype(np.uint32)
     else:
-        bins = sample_minimizer_bins(kmdir, config, opts.bam_filter())
+        bins = sample_minimizer_bins(kmdir, config, opts.bam_filter(),
+                                     device=device)
         if config.repart_type == 1:
             # computeDistrib is computed then overwritten in the reference
             # (RepartitionAlgorithm.cpp:483-488) — net effect is lexi only
@@ -641,10 +773,11 @@ BYTES_PER_WINDOW = 48
 
 
 def _packs(opts: PipelineOptions) -> bool:
-    """The sort layout packs (k2, k3, or h1/h2 in hash mode) for an
-    explicit --nb-partitions; an automatic count is checked once the
-    config has set it."""
-    if opts.nb_partitions <= 0 or not 0 < opts.kmer_size <= 32:
+    """The sort layout packs (k2, k3 or kw; h1/h2 in hash mode), where
+    the JAX package's ``stream_layout`` gives a layout, for an explicit
+    --nb-partitions; an automatic count is checked once the config has set
+    it."""
+    if opts.nb_partitions <= 0:
         return True
     nsamp, nparts = len(Fof.parse(opts.fof)), opts.nb_partitions
     window = HashWindow(opts.bloom_size, nparts,
@@ -661,9 +794,7 @@ def check_slice(opts: PipelineOptions) -> None:
     """Raise NotImplementedError for options outside the ported slices."""
     parse_mode(opts.mode)
     unported = [
-        (not 0 < opts.kmer_size <= 32, f"k = {opts.kmer_size} (only k <= 32)"),
         (opts.until not in ("merge", "all"), f"--until {opts.until}"),
-        (opts.static_repart, "--static-repart"),
         (opts.minim_type == 1, "--minimizer-type 1"),
         (opts.restrict_to < 1.0 or bool(opts.restrict_to_list),
          "--restrict-to / --restrict-to-list"),
@@ -671,7 +802,7 @@ def check_slice(opts: PipelineOptions) -> None:
         (not _packs(opts),
          f"{opts.nb_partitions} partitions at k = {opts.kmer_size} with "
          f"--mode {opts.mode} (no packed sort layout; the JAX package's "
-         "stage_mesh_chunked is ROADMAP slice 4)"),
+         "stage_mesh_chunked is not ported)"),
     ]
     for bad, what in unported:
         if bad:
@@ -699,7 +830,7 @@ def run_pipeline(opts: PipelineOptions, device="cuda", *,
     check_slice(opts)
     t0 = time.time()
     kmdir, config = stage_config(opts)
-    repart = stage_repart(kmdir, config, opts)
+    repart = stage_repart(kmdir, config, opts, device)
     if getattr(repart, "freq", None) is not None:
         raise NotImplementedError("frequency-ordered minimizers")
     budget_windows = int(opts.max_memory_mb * 1e6 / BYTES_PER_WINDOW)

@@ -1,8 +1,8 @@
 """Streaming matrix engine: banks -> device count table -> files.
 
 Counterpart of the single-process body of ``kmtricks_tpu/runtime/
-stream_engine.py::stage_mesh_stream`` (k-mer and hash mode, k <= 32, one
-GPU).
+stream_engine.py::stage_mesh_stream`` (k-mer and hash mode, k <= 128,
+one GPU; wide k-mers in "kw" layouts of up to five sort words).
 Read chunks stream from the banks (or are sliced from a loaded batch) on
 a background thread; each chunk reduces on the device to one sorted run
 of unique (packed key, count) pairs; runs fold into one table whenever
@@ -60,11 +60,11 @@ MAX_READ_LEN = 4096     # longer reads split into overlapping segments
 last_run: dict = {}
 
 
-def table_budget(max_memory_mb: int, layout: str) -> int:
+def table_budget(max_memory_mb: int, layout: str, nsamp: int) -> int:
     """The JAX engine's table budget in entries: a third of --max-memory
-    over 4 bytes per u32 word and count, rounded down to a power of two,
-    at least 32M entries."""
-    nw = _layout_words(layout)
+    over 4 bytes per u32 word of its layout and count, rounded down to a
+    power of two, at least 32M entries."""
+    nw = _layout_words(layout, nsamp)
     return max(1 << 25, _pow2ceil(int(
         max_memory_mb * 1e6 / 3 / (4 * (nw + 1))) + 1) // 2)
 
@@ -141,7 +141,7 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, device,
     want_hists = opts.hist or amin_vec is None
     dev_hard_min = 1 if want_hists else int(hard_mins.min())
     if table_cap is None:
-        table_cap = table_budget(opts.max_memory_mb, layout)
+        table_cap = table_budget(opts.max_memory_mb, layout, nsamp)
 
     gen, rows_per_chunk = _chunk_source(kmdir, opts, k, chunk_windows, batch,
                                         lengths, sarr, use_stream)
@@ -149,7 +149,8 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, device,
     step = build_chunk_pairs_step(
         k=k, m=config.minim_size, nsamp=nsamp, nb_parts=nb_parts,
         mmer_canonical=config.mmer_scheme != "forward", mode=cf,
-        window_bits=window_bits)
+        window_bits=window_bits,
+        static_parts=nb_parts if opts.static_repart else None)
     table = torch.from_numpy(repart.table.astype(np.int32)).to(device)
 
     runs = []

@@ -1,14 +1,16 @@
-"""Port count_merge_keys (k2 and k3 sort layouts, and the h1/h2 hash
+"""Port count_merge_keys (k2, k3 and kw sort layouts, and the h1/h2 hash
 layouts) against the JAX package's count_merge_keys (its XLA segment
 stage, the CPU default): the decoded sorted (partition, key, sample) order
-and every per-position output, exactly."""
+and every per-position output, exactly; and the layout routing against
+the JAX package's packed_layout / stream_layout."""
 
 import numpy as np
 import pytest
 import torch
 
 from kmtricks_tpu.ops import count_merge as jcm
-from kmtricks_tpu_torch.convert import keys_from_msb_words
+from kmtricks_tpu.parallel import pipeline as jpipe
+from kmtricks_tpu_torch.convert import keys_from_msb_words, words_from_msb_u32
 from kmtricks_tpu_torch.ops import count_merge as tcm
 
 torch.set_num_threads(2)
@@ -82,10 +84,107 @@ def test_count_merge_matches_jax(case):
 
 
 def test_unported_layout_raises():
-    # 40 samples x 17 partition bits: the JAX package takes a "kw" layout
-    assert jcm.packed_layout(40, 2, False, 62, 17).startswith("kw.")
+    """40 samples x 17 partition bits at k = 31: the JAX package's "kw"
+    layout, which the port now takes (2 int64 sort words), with the same
+    count_merge_keys outputs; beyond the kw bound (32 partition bits) both
+    packages refuse to pack."""
+    assert jcm.packed_layout(40, 2, False, 62, 17) == "kw.17.62.2"
+    assert tcm.packed_layout(40, 62, 17) == "kw.17.62.2"
+    assert tcm._kw_params("kw.17.62.2", 40)[4] == 2
+    check_wide(62, 2, 1 << 17, 40)
+    assert jcm.packed_layout(40, 2, False, 62, 32) is None
     with pytest.raises(NotImplementedError):
-        tcm.packed_layout(40, 62, 17)
+        tcm.packed_layout(40, 62, 32)
+
+
+def make_wide_occurrences(rng, n, nb_parts, key_bits, nw, nsamp, pool=300):
+    """Occurrences of pooled wide keys as the JAX package's msb-first u32
+    words (as tests/test_packed_layouts.py draws them)."""
+    kpart = rng.integers(0, nb_parts, pool).astype(np.int32)
+    pick = np.minimum(rng.zipf(1.3, n) - 1, pool - 1)
+    words = []
+    for j in range(nw):
+        b = key_bits - 32 * (nw - 1 - j)
+        vals = (rng.integers(0, 1 << min(b, 32), pool, dtype=np.uint64)
+                if b > 0 else np.zeros(pool, np.uint64))
+        words.append(vals[pick].astype(np.uint32))
+    samp = rng.integers(0, nsamp, n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    return kpart[pick], tuple(words), samp, valid
+
+
+def check_wide(key_bits, nw, nb_parts, nsamp):
+    """count_merge_keys on wide keys, port against JAX, every output."""
+    rng = np.random.default_rng(key_bits * 5 + nw + nsamp)
+    part, words, samp, valid = make_wide_occurrences(
+        rng, 4096, nb_parts, key_bits, nw, nsamp)
+    pb = (nb_parts - 1).bit_length()
+    amin = rng.integers(1, 4, nsamp).astype(np.uint32)
+    exp = jcm.count_merge_keys(
+        part, words, samp, valid, amin, nsamp=nsamp, hard_min=2, rmin=1,
+        save_if=2, count_max=255, key_bits=key_bits, part_bits=pb)
+    keys = words_from_msb_u32(words)
+    got = tcm.count_merge_keys(
+        torch.from_numpy(part), keys[0] if len(keys) == 1 else keys,
+        torch.from_numpy(samp), torch.from_numpy(valid),
+        torch.from_numpy(amin.astype(np.int32)), nsamp=nsamp, hard_min=2,
+        rmin=1, save_if=2, count_max=255, key_bits=key_bits, part_bits=pb)
+    e_keys = words_from_msb_u32([np.asarray(w) for w in exp[1]])
+    assert isinstance(got[1], tuple) and len(got[1]) == len(e_keys)
+    for g, e in zip(got[1], e_keys):
+        assert torch.equal(g, e)
+    names = ("part", None, "samp", "final", "cnt", "present", "row_head",
+             "row_keep", "row_of")
+    for i, name in enumerate(names):
+        if name:
+            np.testing.assert_array_equal(
+                got[i].numpy().astype(np.int64),
+                np.asarray(exp[i]).astype(np.int64), err_msg=name)
+    assert got[5].sum() > 0 and got[6].sum() > 1
+
+
+@pytest.mark.parametrize("key_bits,nw,nb_parts,nsamp", [
+    (66, 4, 16, 3),        # k = 33: 2 int64 sort words
+    (94, 4, 64, 8),        # k = 47: 2
+    (128, 4, 4, 4),        # k = 64: 3
+    (192, 6, 16, 2),       # k = 96: 4
+    (254, 8, 8, 5),        # k = 127: 5
+    (256, 8, 1 << 20, 2048),   # k = 128 at the kw bound: 5
+])
+def test_kw_count_merge_matches_jax(key_bits, nw, nb_parts, nsamp):
+    """The cases of tests/test_packed_layouts.py (and one at the bound)."""
+    pb = (nb_parts - 1).bit_length()
+    layout = f"kw.{pb}.{key_bits}.{nw}"
+    assert jcm.packed_layout(nsamp, nw, False, key_bits, pb) == layout
+    assert tcm.packed_layout(nsamp, key_bits, pb) == layout
+    check_wide(key_bits, nw, nb_parts, nsamp)
+
+
+def test_layout_routing_matches_jax():
+    """stream_layout gives the JAX package's layout, or refuses where the
+    JAX package returns None (its stage_mesh_chunked path), over k,
+    partition counts, sample counts and hash windows; the table budget's
+    word count is the JAX package's."""
+    seen = set()
+    for k in (15, 21, 27, 31, 32, 33, 47, 56, 64, 65, 80, 96, 97, 120, 128):
+        for nparts in (1, 4, 512, 1 << 12, 1 << 17, 1 << 24, 1 << 28):
+            for nsamp in (1, 10, 40, 2000):
+                for mode, wb in (("kmer", None), ("hash", 250_048),
+                                 ("hash", 1 << 40)):
+                    if mode == "hash" and nparts > 512:
+                        continue
+                    exp = jpipe.stream_layout(k, 8, nparts, nsamp, mode, wb)
+                    if exp is None:
+                        with pytest.raises(NotImplementedError):
+                            tcm.stream_layout(k, nparts, nsamp, mode, wb)
+                        seen.add("none")
+                        continue
+                    got = tcm.stream_layout(k, nparts, nsamp, mode, wb)
+                    assert got == exp, (k, nparts, nsamp, mode)
+                    assert tcm._layout_words(got, nsamp) == \
+                        jpipe._layout_words(exp, nsamp)
+                    seen.add(got.split(".")[0])
+    assert seen == {"none", "k2", "k3", "kw", "h1", "h2"}
 
 
 def make_hash_occurrences(seed, window, nsamp, nparts, n=6000, pool=400):
@@ -122,7 +221,7 @@ def test_hash_count_merge_matches_jax(case):
     layout = jcm.packed_layout(nsamp, 2, True, kb)
     if kb + (nsamp - 1).bit_length() > 63:
         assert layout is None
-        with pytest.raises(NotImplementedError, match="slice 4"):
+        with pytest.raises(NotImplementedError, match="stage_mesh_chunked"):
             tcm.packed_layout(nsamp, kb, None, part_follows_keys=True)
         return
     assert tcm.packed_layout(nsamp, kb, None, part_follows_keys=True) \

@@ -1,14 +1,19 @@
-"""Port encode (k <= 32) against kmtricks_tpu.ops.encode.encode_batch:
-canonical k-mers, partitions and window validity, exactly."""
+"""Port encode against kmtricks_tpu.ops.encode: ``encode_batch`` (k <= 32)
+and ``encode_batch_wide`` (32 < k <= 128, the span's int64 words against
+the JAX package's u32 words), canonical k-mers, partitions (from the
+table or --static-repart) and window validity, exactly."""
 
 import numpy as np
 import pytest
 import torch
 
 from kmtricks_tpu.ops.encode import encode_batch as jax_encode_batch
-from kmtricks_tpu_torch.convert import from_jax_inputs, keys_from_msb_words
+from kmtricks_tpu.ops.encode import encode_batch_wide as jax_encode_wide
+from kmtricks_tpu_torch.convert import (
+    from_jax_inputs, keys_from_msb_words, words_from_msb_u32)
 from kmtricks_tpu_torch.ops import u64
-from kmtricks_tpu_torch.ops.encode import encode_batch, revcomp64
+from kmtricks_tpu_torch.ops.encode import (
+    encode_batch, encode_batch_wide, revcomp64)
 
 torch.set_num_threads(2)
 
@@ -58,7 +63,54 @@ def test_revcomp_involution_and_unsigned_min():
 
 
 def test_encode_rejects_wide_k():
-    b = torch.full((1, 128), ord("A"), dtype=torch.uint8)
+    """Each encode takes its own k range: encode_batch refuses k > 32 (the
+    wide encode takes it) and encode_batch_wide k <= 32 and k > 128 (the
+    reference's largest span)."""
+    b = torch.full((1, 256), ord("A"), dtype=torch.uint8)
+    ln = torch.tensor([256], dtype=torch.int32)
+    tab = torch.zeros(4 ** 4, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
-        encode_batch(b, torch.tensor([128], dtype=torch.int32),
-                     torch.zeros(4 ** 4, dtype=torch.int32), 33, 4)
+        encode_batch(b, ln, tab, 33, 4)
+    for k in (32, 129):
+        with pytest.raises(NotImplementedError):
+            encode_batch_wide(b, ln, tab, k, 4)
+
+
+@pytest.mark.parametrize("k,static", [
+    (33, False), (45, True), (55, False), (64, False), (65, True),
+    (96, False), (97, True), (127, False), (128, True)])
+def test_encode_wide_matches_jax(k, static):
+    """The cases of tests/test_wide_k.py: canonical keys as the span's
+    int64 words (least significant first), partitions and validity; with
+    ``static_parts`` the partitions are XXH64(minimizer) % 7."""
+    m = 8
+    batch, lengths, table = make_batch(k, L=384, m=m)
+    sp = 7 if static else None
+    jkeys, jparts, jvalid = jax_encode_wide(batch, lengths, table, k, m,
+                                            static_parts=sp)
+    b, ln, _s, tab, _a, _h = from_jax_inputs(batch, lengths, lengths, table,
+                                             None, None, "cpu")
+    keys, parts, valid = encode_batch_wide(b, ln, tab, k, m,
+                                           static_parts=sp)
+    exp = words_from_msb_u32([np.asarray(w) for w in jkeys])
+    assert len(keys) == len(exp) == (2 if k <= 64 else 3 if k <= 96 else 4)
+    vm = np.asarray(jvalid)
+    for g, e in zip(keys, exp):
+        assert torch.equal(g, e.reshape(g.shape))
+    np.testing.assert_array_equal(parts.numpy(), np.asarray(jparts))
+    np.testing.assert_array_equal(valid.numpy(), vm)
+    assert vm.any() and not vm.all()
+    if static:
+        assert 0 <= int(parts.min()) and int(parts.max()) < 7
+
+
+def test_encode_static_parts_matches_jax():
+    """k <= 32 with --static-repart: XXH64(minimizer) % P partitions."""
+    k, m = 31, 8
+    batch, lengths, table = make_batch(3, m=m)
+    _hi, _lo, jparts, _v = jax_encode_batch(batch, lengths, table, k, m,
+                                            static_parts=13)
+    b, ln, _s, tab, _a, _h = from_jax_inputs(batch, lengths, lengths, table,
+                                             None, None, "cpu")
+    _keys, parts, _valid = encode_batch(b, ln, tab, k, m, static_parts=13)
+    np.testing.assert_array_equal(parts.numpy(), np.asarray(jparts))

@@ -63,6 +63,9 @@ GRID = [
     (5, 2, [1, 2, 0, 300, 8191]),
     (6, 1, [100] * 6),                          # ties across runs
     (7, 2, [4096, 123, 9000, 0, 17, 2048, 5]),
+    (3, 3, [2048, 2049, 2047]),                 # the kw layouts' words
+    (4, 4, [5000, 0, 1, 3000]),
+    (2, 5, [TILE + 7, 2 * TILE - 1]),
 ]
 
 
@@ -129,21 +132,29 @@ def test_merge_rejects_bad_runs():
     with pytest.raises(ValueError):
         merge_sorted_runs([((w,), w), ((w,), None)])
     with pytest.raises(ValueError):
-        merge_sorted_runs([((w, w, w), None)])
+        merge_sorted_runs([((w,) * 6, None)])       # 1 to 5 key words
+    with pytest.raises(ValueError):
+        merge_sorted_runs([((w,) * 3, w), ((w,) * 2, w)])
     m = torch.zeros(4, dtype=torch.int64, device="meta")
     with pytest.raises(NotImplementedError):
         merge_sorted_runs([((m,), None), ((m,), None)])
 
 
 def test_wrapper_sizes_split_scratch_from_merge_tile():
-    """The wrapper hands the kernel one split per tile boundary of
-    ``_build.MERGE_TILE`` (the tile csrc/merge_runs.cu is built with) and
-    counts one partition and one merge launch per pairwise merge."""
+    """The wrapper hands the kernel one split per tile boundary of the
+    tile its instantiation is built with (``_build.merge_tile``: the
+    source's TILE for up to three staged arrays, TILE_WIDE for four to
+    six), the key words as a pointer array, and counts one partition and
+    one merge launch per pairwise merge."""
     src = os.path.join(os.path.dirname(_build.__file__), "csrc",
                        "merge_runs.cu")
     with open(src) as f:
-        tile = int(re.search(r"#define TILE (\d+)", f.read())[1])
-    assert tile == _build.MERGE_TILE
+        text = f.read()
+    tile = int(re.search(r"#define TILE (\d+)", text)[1])
+    wide = int(re.search(r"#define TILE_WIDE (\d+)", text)[1])
+    assert (tile, wide) == (_build.MERGE_TILE, _build.MERGE_TILE_WIDE)
+    assert [_build.merge_tile(a) for a in range(1, 7)] == [tile] * 3 + [
+        wide] * 3
 
     class FakeLib:
         calls = []
@@ -157,7 +168,10 @@ def test_wrapper_sizes_split_scratch_from_merge_tile():
     for lens, nw, payload in (([1, 0], 1, False), ([2, 3], 1, False),
                               ([tile, 0], 2, True), ([tile - 1, 1], 1, True),
                               ([tile, 1], 2, False),
-                              ([3 * tile + 5, 2 * tile], 2, True)):
+                              ([3 * tile + 5, 2 * tile], 2, True),
+                              ([tile, 1], 3, False),
+                              ([wide, 1], 3, True),
+                              ([2 * wide + 1, wide - 1], 5, True)):
         lib = FakeLib()
         lib.calls = []
         a, b = make_runs(rng, lens, nw, payload)
@@ -167,31 +181,42 @@ def test_wrapper_sizes_split_scratch_from_merge_tile():
             assert not lib.calls                 # nothing to merge
             continue
         (args,) = lib.calls
-        assert args[-2] == -(-n // _build.MERGE_TILE) + 1
-        assert args[4] == lens[0] and args[8] == lens[1]
+        t = tile if nw + payload <= 3 else wide
+        assert args[0] == nw and args[-2] == -(-n // t) + 1
+        assert args[3] == lens[0] and args[6] == lens[1]
+        assert list(args[1]) == [w.data_ptr() for w in a[0]]
+        assert list(args[4]) == [w.data_ptr() for w in b[0]]
+        assert (args[2] is None) == (args[8] is None) == (not payload)
     counted = {k: MR.LAUNCHES[k] - before[k] for k in MR.LAUNCHES}
-    assert counted == {"K3": 1, "K4": 3, "K3_split": 1, "K4_split": 3}
-    assert MR.split_scratch(2 * tile + 1, "cpu").numel() == 4
+    assert counted == {"K3": 1, "K4": 6, "K3_split": 1, "K4_split": 6}
+    assert MR.split_scratch(2 * tile + 1, "cpu", tile).numel() == 4
 
 
 # ---------------------------------------------------------------------------
 # CPU model of the kernels of csrc/merge_runs.cu: the partition pass (one
 # warp per tile boundary, M_LANES candidates a round, over the samples
-# x = k * M_TILE, then within one tile), the persistent tile
+# x = k * tile, then within one tile), the persistent tile
 # walk over two shared-memory stages (the next tile staged while this one
 # merges), the windows fetched from 16-byte boundaries and read at their
 # 0/1 offsets through the chunk swizzle, the per-thread diagonals and
 # sequential merges, and the
-# gather in output order, at a tile of 64 (8 threads x 8 outputs), against
-# the plain version. It checks the kernels' index algebra where no GPU runs
-# them.
+# gather in output order, at a tile of 64 (8 threads x 8 outputs) for up to
+# three staged arrays and of 32 (4 threads) for four to six (model_shape),
+# against the plain version. It checks the kernels' index algebra where no
+# GPU runs them.
 # ---------------------------------------------------------------------------
 
-M_THREADS, M_ITEMS = 8, 8
-M_TILE = M_THREADS * M_ITEMS
-M_BUF = M_TILE + 16
+M_ITEMS = 8
 M_LANES = 4         # lanes of the partition's warp (32 on the card)
 M_GRID = 3          # persistent blocks
+
+
+def model_shape(arrays):
+    """(tile, threads) of the model kernel staging ``arrays`` arrays: a
+    tile of 64 (8 threads x 8) for up to three, half of it for four to six,
+    as ``_build.merge_tile`` halves 4096 to 2048."""
+    tile = 64 if arrays <= 3 else 32
+    return tile, tile // M_ITEMS
 
 
 class Mem:
@@ -237,21 +262,21 @@ def warp_search(A, B, d, unit, klo, khi):
     return klo
 
 
-def model_partition(A, B, na, nb):
+def model_partition(A, B, na, nb, tile):
     """merge_partition: the merge-path split at every tile boundary, a
-    coarse search over the samples x = k * M_TILE, then within one tile."""
+    coarse search over the samples x = k * tile, then within one tile."""
     n = na + nb
-    splits = np.zeros(-(-n // M_TILE) + 1, dtype=np.int64)
+    splits = np.zeros(-(-n // tile) + 1, dtype=np.int64)
     for t in range(len(splits)):
-        d = min(t * M_TILE, n)
+        d = min(t * tile, n)
         lo, hi = max(0, d - nb), min(d, na)
-        klo, khi = -(-lo // M_TILE), -(-hi // M_TILE)
-        kf = warp_search(A, B, d, M_TILE, klo, khi)
+        klo, khi = -(-lo // tile), -(-hi // tile)
+        kf = warp_search(A, B, d, tile, klo, khi)
         if kf > klo:
-            lo = (kf - 1) * M_TILE + 1
+            lo = (kf - 1) * tile + 1
         if kf < khi:
-            hi = kf * M_TILE
-        assert hi - lo < M_TILE
+            hi = kf * tile
+        assert hi - lo < tile
         splits[t] = warp_search(A, B, d, 1, lo, hi)
     return splits
 
@@ -279,11 +304,12 @@ def model_stage(arr, off, g, s, c, par):
                 arr[swz(q + 1)] = g.read(s + e + 1)[0]
 
 
-def model_tile(tile, s0, s1, n, ga, gb):
-    """tile_of(): the windows and each array's staged offsets."""
-    d0 = tile * M_TILE
+def model_tile(tile, s0, s1, n, ga, gb, size):
+    """tile_of(): the windows and each array's staged offsets (tiles of
+    ``size`` outputs)."""
+    d0 = tile * size
     ta = int(s1 - s0)
-    tb = min(d0 + M_TILE, n) - d0 - ta
+    tb = min(d0 + size, n) - d0 - ta
     pa = [(g.slot + int(s0)) & 1 for g in ga]
     pb = [((pa[x] + ta + 1) & ~1) + ((gb[x].slot + d0 - int(s0)) & 1)
           for x in range(len(ga))]
@@ -298,7 +324,7 @@ def model_fetch(t, buf, ga, gb):
                     t["pb"][x] & 1)
 
 
-def model_merge_src(t, buf, src, nw):
+def model_merge_src(t, buf, src, nw, threads):
     """merge_src(): each thread's diagonal, then ITEMS outputs in turn."""
     ta, tb = t["ta"], t["tb"]
     pa, pb = t["pa"], t["pb"]
@@ -309,7 +335,7 @@ def model_merge_src(t, buf, src, nw):
     def b_key(j):
         return tuple(buf[w][swz(pb[w] + j)] for w in range(nw))
 
-    for tid in range(M_THREADS):
+    for tid in range(threads):
         t0 = tid * M_ITEMS
         if t0 >= ta + tb:
             continue
@@ -353,7 +379,7 @@ def model_kernel(a, b, slots=None):
     persistent merge. Returns (words, payload)."""
     (aw, ap), (bw, bp) = a, b
     nw = len(aw)
-    slots = slots or ((0,) * 3, (0,) * 3)
+    slots = slots or ((0,) * 6, (0,) * 6)
     ga = [Mem(x, slots[0][i]) for i, x in enumerate(
         list(aw) + ([] if ap is None else [ap]))]
     gb = [Mem(x, slots[1][i]) for i, x in enumerate(
@@ -363,24 +389,28 @@ def model_kernel(a, b, slots=None):
     outs = [np.full(n, -1, dtype=np.int64) for _ in ga]
     if n == 0:
         return outs[:nw], (None if ap is None else outs[nw])
+    size, threads = model_shape(len(ga))
     splits = model_partition(
         lambda i: tuple(g.read(i)[0] for g in ga[:nw]),
-        lambda j: tuple(g.read(j)[0] for g in gb[:nw]), na, nb)
+        lambda j: tuple(g.read(j)[0] for g in gb[:nw]), na, nb, size)
     ntiles = len(splits) - 1
     grid = min(ntiles, M_GRID)
     rng = np.random.default_rng(n)
     for block in range(grid):
-        smem = rng.integers(-2**62, 2**62, (2, len(ga), M_BUF))  # garbage
-        src = rng.integers(0, 1 << 16, M_TILE)
+        # garbage, as shared memory holds it
+        smem = rng.integers(-2**62, 2**62, (2, len(ga), size + 16))
+        src = rng.integers(0, 1 << 16, size)
         tile, st = block, 0
-        cur = model_tile(tile, splits[tile], splits[tile + 1], n, ga, gb)
+        cur = model_tile(tile, splits[tile], splits[tile + 1], n, ga, gb,
+                         size)
         model_fetch(cur, smem[0], ga, gb)
         nxt = tile + grid
         while True:
             if nxt < ntiles:
-                nt = model_tile(nxt, splits[nxt], splits[nxt + 1], n, ga, gb)
+                nt = model_tile(nxt, splits[nxt], splits[nxt + 1], n, ga, gb,
+                                size)
                 model_fetch(nt, smem[st ^ 1], ga, gb)
-            model_merge_src(cur, smem[st], src, nw)
+            model_merge_src(cur, smem[st], src, nw, threads)
             model_store(cur, smem[st], src, outs)
             if nxt >= ntiles:
                 break
@@ -460,6 +490,27 @@ def model_cases():
                                 None, False)
     yield "one_word_keys_only", (make_runs(rng, [333, 444], 1, False), None,
                                  False)
+    # the kw layouts' 3-5 key words: the 32-output tile of four to six
+    # staged arrays (the 64 one of three), its edges, ties, odd slots
+    for nw in (3, 4, 5):
+        rng = np.random.default_rng(20 + nw)
+        yield f"wide_w{nw}_payload", (make_runs(rng, [250, 199, 77], nw,
+                                                True, 1 << 40), None, False)
+        yield f"wide_w{nw}_few_keys", (make_runs(rng, [130, 97], nw, True,
+                                                 2), None, False)
+        yield f"wide_w{nw}_ties", (equal_runs([70, 33], nw, True), None,
+                                   False)
+        for lens in ([32, 32], [31, 33], [33, 32], [64, 1], [1, 95]):
+            yield f"wide_w{nw}_edge_{lens[0]}_{lens[1]}", (
+                make_runs(rng, lens, nw, True), None, False)
+        slots = (tuple(rng.integers(0, 2, 6)), tuple(rng.integers(0, 2, 6)))
+        yield f"wide_w{nw}_odd_slots", (make_runs(rng, [111, 150], nw, True),
+                                        slots, False)
+        yield f"wide_w{nw}_kernel_1_40", (make_runs(rng, [1, 40], nw, True),
+                                          ((1,) * 6, (1,) * 6), True)
+    rng = np.random.default_rng(30)
+    yield "wide_w3_keys_only", (make_runs(rng, [200, 150], 3, False), None,
+                                False)
 
 
 MODEL_CASES = dict(model_cases())

@@ -1,7 +1,8 @@
 """The port's slices as a whole: the fused single-device step (k-mer and
-hash keys) against the JAX package's build_single_chip_step, and
-``run_pipeline`` on the CPU against ``kmtricks_tpu --backend host``, byte
-for byte, for every count format, mode and output."""
+hash keys, k <= 32 and wide k) against the JAX package's
+build_single_chip_step, and ``run_pipeline`` on the CPU against
+``kmtricks_tpu --backend host``, byte for byte, for every count format,
+mode and output, wide k (the kw sort layouts) and --static-repart."""
 
 import os
 import pathlib
@@ -160,6 +161,27 @@ PIPELINE_CASES = {
                          recurrence_min=2, mode="kmer:pa:text"),
     "kmer_count_text": dict(kmer_size=31, hard_min=1, soft_min="1",
                             recurrence_min=2, mode="kmer:count:text"),
+    # wide k: kw layouts of 2 (k = 41, 45), 3 (k = 63) and 4 (k = 96)
+    # int64 sort words
+    "k41_count_bin": dict(kmer_size=41, hard_min=1, soft_min="2",
+                          share_min=1),
+    "k45_count_bin": dict(kmer_size=45, hard_min=1, soft_min="2",
+                          share_min=2),
+    "k63_count_bin": dict(kmer_size=63, hard_min=1, soft_min="1",
+                          recurrence_min=2),
+    "k96_count_bin": dict(kmer_size=96, hard_min=1, soft_min="2",
+                          share_min=1, amin=True),
+    "k45_hash_bf_bin": dict(kmer_size=45, hard_min=1, soft_min="2",
+                            share_min=1, mode="hash:bf:bin",
+                            bloom_size=800_000),
+    "k63_kmer_pa_bin": dict(kmer_size=63, hard_min=1, soft_min="2",
+                            share_min=1, mode="kmer:pa:bin", amin=True),
+    "k64_kmer_count_text": dict(kmer_size=64, hard_min=1, soft_min="1",
+                                recurrence_min=2, mode="kmer:count:text"),
+    "k31_static_repart": dict(kmer_size=31, hard_min=1, soft_min="2",
+                              share_min=1, static_repart=True),
+    "k45_static_repart": dict(kmer_size=45, hard_min=1, soft_min="1",
+                              static_repart=True, nb_partitions=4),
 }
 
 
@@ -186,15 +208,19 @@ def test_run_pipeline_matches_host_backend(tmp_path, case):
     assert any(n.startswith("fpr/") for n in a) == (mode == "bf")
     assert sum(n.startswith("filters/") for n in a) == (
         10 if mode == "bft" else 0)
+    reps = [open(os.path.join(r, "repartition", "repartition.minimRepart"),
+                 "rb").read() for r in (host.root, port.root)]
+    assert reps[0] == reps[1]
 
 
 def test_port_never_imports_jax(tmp_path):
     """Importing every port module and chip_smoke, and running the CPU
     pipeline through the one-step path and through the streaming engine
     (chunks decoded from the banks, histograms, a float soft-min; hash
-    keys with the per-sample filters; the pa-bits tail), with the port's
-    own options, leaves jax and the JAX package out of sys.modules (run
-    in a fresh interpreter)."""
+    keys with the per-sample filters; the pa-bits tail; k = 63 with
+    --static-repart), with the port's own options and the tally on the
+    device, leaves jax and the JAX package out of sys.modules (run in a
+    fresh interpreter)."""
     fof = write_fof(tmp_path / "c.fof")
     code = f"""
 import sys
@@ -202,6 +228,7 @@ import kmtricks_tpu_torch, kmtricks_tpu_torch.cli, kmtricks_tpu_torch._build
 import kmtricks_tpu_torch.convert, kmtricks_tpu_torch.ops.segscan
 import kmtricks_tpu_torch.ops.merge_runs, kmtricks_tpu_torch.ops.table
 import kmtricks_tpu_torch.ops.xxh64, kmtricks_tpu_torch.io.howde
+import kmtricks_tpu_torch.ops.repart_sample
 import chip_smoke
 from kmtricks_tpu_torch.runtime.pipeline import PipelineOptions, run_pipeline
 from kmtricks_tpu_torch.runtime import stream_engine
@@ -217,6 +244,9 @@ for mode in ("hash:bft:bin", "kmer:pa:bin"):
                                  max_memory_mb=1, bloom_size=500_000),
                  device="cpu")
 assert stream_engine.last_run["tail"] == "pa_bits"
+run_pipeline(PipelineOptions(fof={fof!r}, run_dir={str(tmp_path / 'w')!r},
+                             kmer_size=63, static_repart=True,
+                             max_memory_mb=1), device="cpu")
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "kmtricks_tpu")]
 assert not bad, bad
@@ -262,12 +292,70 @@ def test_cli_refuses_unported_commands(argv):
 @pytest.mark.parametrize("opt", [
     dict(minim_type=1), dict(restrict_to_list=[0]),
     dict(mode="hash:bf:bin", bloom_size=2**62, nb_partitions=16),
-    dict(kmer_size=41), dict(static_repart=True), dict(restrict_to=0.5),
-    dict(until="count"), dict(nb_partitions=1 << 17),
+    dict(kmer_size=128, nb_partitions=1 << 28), dict(kff=True),
+    dict(restrict_to=0.5), dict(until="count"), dict(until="repart"),
 ])
 def test_run_pipeline_refuses_outside_the_slice(tmp_path, opt):
+    """What the port still refuses: --until before merge,
+    --minimizer-type 1, --restrict-to[-list], --kff-output, and the
+    layouts the JAX package's stream_layout returns None for (hashes over
+    63 bits with the sample; k-mers whose partition, key and sample bits
+    pass its kw bound). Nothing is written."""
     fof = write_fof(tmp_path / "c.fof")
     with pytest.raises(NotImplementedError):
         run_pipeline(PipelineOptions(fof=fof, run_dir=str(tmp_path / "rd"),
                                      **opt), device="cpu")
     assert not (tmp_path / "rd").exists()
+
+
+def test_wide_partition_count_routes_to_kw(tmp_path):
+    """2^17 partitions at k = 31 (a case that used to be refused) pass
+    check_slice and take the JAX package's kw layout; no pipeline runs
+    (it would write 131,072 files per run directory)."""
+    from kmtricks_tpu.parallel.pipeline import stream_layout as jax_layout
+    from kmtricks_tpu_torch.ops.count_merge import stream_layout
+    from kmtricks_tpu_torch.runtime.pipeline import check_slice
+
+    fof = write_fof(tmp_path / "c.fof")
+    for k, static in ((31, False), (31, True), (41, False), (127, True)):
+        check_slice(PipelineOptions(fof=fof, run_dir=str(tmp_path / "rd"),
+                                    kmer_size=k, nb_partitions=1 << 17,
+                                    static_repart=static))
+        layout = stream_layout(k, 1 << 17, 10)
+        assert layout == jax_layout(k, 8, 1 << 17, 10, "kmer", None)
+        assert layout.startswith("kw.17.")
+    assert not (tmp_path / "rd").exists()
+
+
+@pytest.mark.parametrize("k,static", [(45, False), (96, True)])
+def test_single_chip_wide_step_matches_jax(k, static):
+    """The fused step at k > 32 (kw layout) against the JAX step: the
+    rows' key words (the span, least significant first) and partition, and
+    the counts."""
+    from kmtricks_tpu_torch.convert import words_from_msb_u32
+
+    nsamp, m, nparts = 4, 8, 4
+    batch, lengths, samp, table, amin = synthetic_batch(k, nsamp, m=m,
+                                                        nparts=nparts)
+    step = jax.jit(jax_step(k=k, m=m, nsamp=nsamp, hard_min=1, rmin=1,
+                            save_if=2, count_max=255, nb_parts=nparts,
+                            with_stats=False, compact_rows=8192,
+                            static_repart_parts=nparts if static else None))
+    rows_j, pre_j, nrows_j, maxc_j, npres_j = step(batch, lengths, samp,
+                                                   table, amin)
+    args = from_jax_inputs(batch, lengths, samp, table, amin, None, "cpu")
+    rows, pre, nrows, maxc, npres = build_single_chip_step(
+        k=k, m=m, nsamp=nsamp, nb_parts=nparts, hard_min=1, rmin=1,
+        save_if=2, count_max=255,
+        static_parts=nparts if static else None)(*args[:5])
+    assert (nrows, maxc, npres) == (int(nrows_j), int(maxc_j), int(npres_j))
+    assert nrows > 100
+    rows_j = np.asarray(rows_j)[:nrows]
+    nw = rows_j.shape[1] - 1
+    exp = words_from_msb_u32([rows_j[:, j] for j in range(nw)])
+    assert rows.shape == (nrows, len(exp) + 1)
+    for j, e in enumerate(exp):
+        np.testing.assert_array_equal(rows[:, j].numpy(), e.numpy())
+    np.testing.assert_array_equal(rows[:, -1].numpy(), rows_j[:, -1])
+    np.testing.assert_array_equal(pre.numpy(),
+                                  np.asarray(pre_j)[:nrows].astype(np.int64))

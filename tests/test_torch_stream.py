@@ -1,7 +1,8 @@
 """The port's streaming engine as a whole: ``run_pipeline(device="cpu")``
 through the engine against ``kmtricks_tpu --backend host``, byte for byte
 (matrices, merge infos, histograms, fpr files and filters; k-mer and hash
-keys, the dense tail and the pa-bits tail); the device pa finalize against
+keys, wide k in the kw layouts, --static-repart, the dense tail and the
+pa-bits tail); the device pa finalize against
 the JAX package's; the routing against the JAX package's
 ``run_mesh_pipeline``; and the prefetch thread's errors."""
 
@@ -116,6 +117,31 @@ ENGINE_CASES = {
         kw=dict(kmer_size=21, hard_min=1, share_min=1, max_memory_mb=1,
                 mode="kmer:pa:bin"), soft_mins=[300, 1, 1], count_bytes=1,
         fof="deep", stream=True, tail="pa_bits"),
+    # wide k: kw tables of 2 (k = 45), 3 (k = 63) and 4 (k = 96) int64
+    # words through the chunk step, K4's plain version and the tails
+    "k45_banks_wide": dict(
+        kw=dict(kmer_size=45, hard_min=1, soft_min="2", share_min=1,
+                max_memory_mb=1), stream=True),
+    "k63_batch_folds_hist_wide": dict(
+        kw=dict(kmer_size=63, hard_min=2, soft_min="1", hist=True),
+        engine=dict(chunk_windows=3000, table_cap=78_000), folds=True),
+    "k96_banks_long_reads_wide": dict(
+        kw=dict(kmer_size=96, hard_min=1, soft_min="2", share_min=1,
+                max_memory_mb=1), fof="odd", stream=True),
+    "k63_kmer_pa_banks_pa_tail_wide": dict(
+        kw=dict(kmer_size=63, hard_min=1, soft_min="2", share_min=1,
+                max_memory_mb=1, mode="kmer:pa:bin"), amin=True,
+        stream=True, tail="pa_bits"),
+    "k45_hash_bf_banks": dict(
+        kw=dict(kmer_size=45, hard_min=1, soft_min="2", share_min=1,
+                max_memory_mb=1, mode="hash:bf:bin", bloom_size=800_000),
+        stream=True),
+    "k45_static_repart_banks": dict(
+        kw=dict(kmer_size=45, hard_min=1, soft_min="1", max_memory_mb=1,
+                static_repart=True), stream=True),
+    "k31_static_repart_banks": dict(
+        kw=dict(kmer_size=31, hard_min=2, soft_min="1", max_memory_mb=1,
+                static_repart=True), stream=True),
 }
 
 
@@ -260,6 +286,10 @@ ROUTES = {
     "batch_for_hist": ("ref", dict(hist=True), ("engine", False)),
     "batch_for_float_soft_min": ("ref", dict(soft_min="0.5"),
                                  ("engine", False)),
+    "wide_static_one_step": ("ref", dict(kmer_size=96, static_repart=True),
+                             ("step", False)),
+    "wide_banks_by_est_bytes": ("ref", dict(kmer_size=63, max_memory_mb=1),
+                                ("engine", True)),
 }
 
 
@@ -283,7 +313,7 @@ def test_routing_matches_run_mesh_pipeline(tmp_path, route, monkeypatch):
     monkeypatch.setattr(jdp, "stage_mesh_chunked", rec("jax", "chunked"))
     monkeypatch.setattr(P, "stage_mesh_stream", rec("port", "engine"))
     monkeypatch.setattr(P, "stage_count_merge", rec("port", "step"))
-    opts = dict(fof=fof, kmer_size=31, nb_partitions=4, **kw)
+    opts = dict(dict(fof=fof, kmer_size=31, nb_partitions=4), **kw)
     jopts = JaxOptions(run_dir=str(tmp_path / "jax"), backend="mesh", **opts)
     jax_run_pipeline(jopts)
     popts = PipelineOptions(run_dir=str(tmp_path / "port"), **opts)

@@ -94,3 +94,24 @@ def test_window_hash_matches_jax_and_golden(w):
         got, jax_u64.to_u64_np(np.asarray(hi), np.asarray(lo)))
     h = jax_hashers.xxh64_words(keys[:, None])
     assert (h >> np.uint64(63)).sum() > len(keys) // 3
+
+
+@pytest.mark.parametrize("slots", [2, 3, 4])
+def test_window_hash_wide_matches_golden(slots):
+    """Wide k-mers (k > 32) hash their span storage: ``slots`` int64 words,
+    least significant first, as the numpy golden's (N, slots) rows and the
+    JAX package's u64 word list."""
+    w = 250_048
+    words = np.stack([u64_values(40 + slots + i, 3000)
+                      for i in range(slots)], 1)
+    parts = np.random.default_rng(slots).integers(0, 4, len(words)).astype(
+        np.int32)
+    got = as_u64(window_hash([as_torch(words[:, i]) for i in range(slots)],
+                             torch.from_numpy(parts), w))
+    golden = jax_hashers.window_hash(words, parts, w)
+    np.testing.assert_array_equal(got, golden)
+    hi, lo = jax_xxh64.window_hash(
+        [tuple(map(jnp.asarray, p)) for p in _jax_pairs(words)],
+        jnp.asarray(parts), w)
+    np.testing.assert_array_equal(
+        got, jax_u64.to_u64_np(np.asarray(hi), np.asarray(lo)))
