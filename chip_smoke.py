@@ -96,7 +96,24 @@ and minimizer files included:
    with ``-t 1`` and ``-t 4`` (count and merge stage walls, peak device
    bytes, launches) against phase 5's host stages; and the split of the
    30x ``hash:bft:bin`` engine tail (bf rows, host or device transpose,
-   filters).
+   filters);
+17. the host-aggregated chunked path (``stage_mesh_chunked``, the sort
+   layouts no packed word takes): ``hash:count:bin --bloom-size 2^62
+   --nb-partitions 4`` and ``hash:pa:bin --bloom-size 2^61
+   --nb-partitions 8`` on the 8x bank in chunks, against the host stages
+   (repartition included); ``stage_mesh_chunked`` itself, streaming, on
+   the 30x bank at k = 31 against phase 8's engine run, and with --hist
+   and a float soft-min against an engine run with the same options; K1/K2
+   on the largest chunk's segment stage against their plain versions;
+18. the mesh: the 8x bank in one step over four shards on one card (one
+   shard per card as well where there are several) at k = 31 (k3
+   receivers: K4), 21 (k2: K3), 63 (kw: K4 over three words) and
+   ``hash:bf:bin --bloom-size 10000000`` (h1: K3), against the host stages
+   and the one-shard run; the 30x bank through the engine over four
+   shards against phase 8's run; walls, peaks and launches of each; K3
+   and K4 on the largest receiver's own routed runs against their plain
+   versions, timed beside their bytes bounds (and K3 beside
+   ``torch.sort``).
 
 Kernel times are device times: CUDA events around a batch of
 back-to-back calls enqueued behind a sleep kernel, divided by their
@@ -112,6 +129,7 @@ printing a result. Nothing here imports jax or the JAX package
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -185,20 +203,24 @@ def sleep_cycles_per_ms() -> float:
     return 1e7 / start.elapsed_time(end)
 
 
-def device_ms(fn, repeats: int = 3, batch_ms: float = 20.0) -> list:
+def device_ms(fn, repeats: int = 3, batch_ms: float = 20.0,
+              max_calls: int = 200) -> list:
     """Device time of one call of ``fn`` in ms, ``repeats`` times: CUDA
     events around a batch of back-to-back calls (about ``batch_ms`` of
-    work), divided by their count. The batch is enqueued behind a sleep
-    kernel, so the wrapper's host time overlaps the device's work; the
-    start event must still be pending once the last call is enqueued
-    (else the sleep is lengthened and the batch runs again)."""
+    work, at most ``max_calls``: the card queues about a thousand pending
+    launches, past which enqueueing waits for the device), divided by
+    their count. The batch is enqueued behind a sleep kernel, so the
+    wrapper's host time overlaps the device's work; the start event must
+    still be pending once the last call is enqueued (else the sleep is
+    lengthened and the batch runs again)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
-    count = int(min(200, max(3, batch_ms / max(cuda_ms(fn, 1), 1e-3))))
+    count = int(min(max_calls, max(3, batch_ms / max(cuda_ms(fn, 1),
+                                                     1e-3))))
     out = []
     for _ in range(repeats):
         sleep_ms = 2.0 * count * host_ms + 1.0
@@ -368,7 +390,7 @@ def check_kernels(inputs, rmin, save_if, cmax, S, reps=REPEATS):
 def host_run(fof, run_dir, k, repart_from=None, max_memory=8192,
              hist=False, soft_min="2", mode="kmer:count:bin",
              bloom_size=None, bitw=None, stage_format=False,
-             static_repart=False, minim_type=0):
+             static_repart=False, minim_type=0, nb_partitions=0):
     """The host stages one by one, from the port's copy of the JAX
     package's host layer (numpy, independent of the device path under
     test): config, repartition (the host numpy tally, or XXH64 under
@@ -385,7 +407,7 @@ def host_run(fof, run_dir, k, repart_from=None, max_memory=8192,
         repart_from=repart_from, max_memory_mb=max_memory, hist=hist,
         mode=mode, bloom_size=bloom_size or C.DEFAULT_BLOOM_SIZE,
         bitw=bitw or C.DEFAULT_BITW, static_repart=static_repart,
-        minim_type=minim_type)
+        minim_type=minim_type, nb_partitions=nb_partitions)
     kmdir, config = P.stage_config(opts)
     rep = P.stage_repart(kmdir, config, opts)
     for s in range(len(kmdir.fof)):
@@ -707,7 +729,7 @@ def phase_a_runs(fof, run_dir, k, dev, repart_from=None, **kw):
     from kmtricks_tpu_torch.runtime.pipeline import (
         BYTES_PER_WINDOW, PipelineOptions, parse_mode, stage_config,
         stage_repart)
-    from kmtricks_tpu_torch.runtime.stream_engine import _chunk_source
+    from kmtricks_tpu_torch.runtime.device_pipeline import chunk_source
 
     opts = PipelineOptions(fof=fof, run_dir=run_dir, kmer_size=k,
                            repart_from=repart_from, **kw)
@@ -716,16 +738,16 @@ def phase_a_runs(fof, run_dir, k, dev, repart_from=None, **kw):
                                                          "merge_infos")))
     kmdir, config = stage_config(opts)
     rep = stage_repart(kmdir, config, opts)
-    gen, _rows = _chunk_source(
+    gen, _rows = chunk_source(
         kmdir, opts, k, int(opts.max_memory_mb * 1e6 / BYTES_PER_WINDOW),
         None, None, None, True)
     cf = parse_mode(opts.mode)[0]
-    step = build_chunk_pairs_step(k=k, m=config.minim_size,
+    step = build_chunk_pairs_step((dev,), k=k, m=config.minim_size,
                                   nsamp=len(kmdir.fof),
                                   nb_parts=config.nb_partitions, mode=cf,
                                   window_bits=hash_window_bits(kmdir, cf))
     table = torch.from_numpy(rep.table.astype(np.int32)).to(dev)
-    return [step(*(torch.from_numpy(a).to(dev) for a in chunk), table)
+    return [step(*(torch.from_numpy(a).to(dev) for a in chunk), table)[0]
             for chunk in gen], kmdir, config, opts
 
 
@@ -932,12 +954,13 @@ def hash_full_size(fof_big, host_full, fof_e2e, eng_rd, S, MR, SE, dev,
             t0 = time.perf_counter()
             if tail == "pa_bits":
                 SE._fetch_merge_write_pa_bits(
-                    kmdir, config, opts, "kmer", rows, pre, part_rows,
-                    amin_np, hard_np, count_max)
+                    kmdir, config, opts, "kmer", (dev,),
+                    [(rows, pre, part_rows)], amin_np, hard_np, count_max)
             else:
                 SE._fetch_merge_write(
-                    kmdir_dense, config, opts, "kmer", rows, pre, part_rows,
-                    amin_np, hard_np, count_max, False)
+                    kmdir_dense, config, opts, "kmer", (dev,),
+                    [(rows, pre, part_rows)], amin_np, hard_np, count_max,
+                    False)
             tails[tail].append(time.perf_counter() - t0)
     tail_files = compare_run_dirs(kmdir.root, dense_root)
     emit({"phase": "hash_full_size", "bloom_size": BLOOM_FULL,
@@ -1474,31 +1497,33 @@ def per_stage_phase(fof_small, fof_big, fof_e2e, eng_rd, S, MR, SE,
     return launches, per_stage_k
 
 
-def per_stage_kernels(fof_big, dev_opts, S) -> dict:
-    """K1 and K2 on the per-stage path's own inputs: the first sample's
-    segment stage of one more ``-t 1`` run on the 8x bank (one sample,
-    about 7.8M windows), its inputs and parameters kept as the path gave
-    them; then bit-equal against the plain versions (``REPEATS`` launches
-    each), device and plain times, and the bytes bounds."""
+@contextlib.contextmanager
+def kept_segment_stage(S):
+    """While open, the largest K1 launch's inputs and parameters (cloned)
+    and K2's parameters are kept as the path gives them (``seen``)."""
     seen = {}
     bwd, fwd = S.segscan_bwd_cuda, S.segscan_fwd_cuda
 
     def bwd_kept(*a, **kw):
-        if "bwd" not in seen:
-            seen["bwd"] = ([t.clone() for t in a], kw)
+        if a[0].numel() > seen.get("n", -1):
+            seen.update(n=a[0].numel(), bwd=([t.clone() for t in a], kw))
         return bwd(*a, **kw)
 
     def fwd_kept(*a, **kw):
         seen.setdefault("fwd", kw)
         return fwd(*a, **kw)
 
-    rd = os.path.join(WORK, "stage_full_kept")
     S.segscan_bwd_cuda, S.segscan_fwd_cuda = bwd_kept, fwd_kept
     try:
-        port_run(fof_big, rd, 31, None, dev_opts + ["-t", "1"])
+        yield seen
     finally:
         S.segscan_bwd_cuda, S.segscan_fwd_cuda = bwd, fwd
-    shutil.rmtree(rd)
+
+
+def segment_kernel_report(seen, S) -> dict:
+    """K1 and K2 on kept segment-stage inputs (:func:`kept_segment_stage`):
+    bit-equal against the plain versions (``REPEATS`` launches each),
+    device and plain times, and the bytes bounds."""
     seg_in, kw = seen["bwd"]
     cmax = kw["count_max"]
     rmin, save_if = seen["fwd"]["rmin"], seen["fwd"]["save_if"]
@@ -1527,9 +1552,276 @@ def per_stage_kernels(fof_big, dev_opts, S) -> dict:
         # phase 3
         "bound_ms": {"K1": n * (3 + 8 + 10) / HBM_BYTES_PER_S * 1e3,
                      "K2": n * (4 + 8 + 10) / HBM_BYTES_PER_S * 1e3}}
-    del seen, seg_in, fwd_args, cnt, present, solid, suffix
+    seen.clear()
+    del seg_in, fwd_args, cnt, present, solid, suffix
     torch.cuda.empty_cache()
     return out
+
+
+def per_stage_kernels(fof_big, dev_opts, S) -> dict:
+    """K1 and K2 on the per-stage path's own inputs: the largest sample's
+    segment stage of one more ``-t 1`` run on the 8x bank (one sample,
+    about 7.8M windows), its inputs and parameters kept as the path gave
+    them (:func:`segment_kernel_report`)."""
+    rd = os.path.join(WORK, "stage_full_kept")
+    with kept_segment_stage(S) as seen:
+        port_run(fof_big, rd, 31, None, dev_opts + ["-t", "1"])
+    shutil.rmtree(rd)
+    return segment_kernel_report(seen, S)
+
+
+# ---------------------------------------------------------------------------
+# Phases 17 (the chunked path) and 18 (the mesh)
+# ---------------------------------------------------------------------------
+
+CHUNKED_MEM = 1000   # MB: 20.8M windows a chunk, four on the 8x bank
+E2E_MEM = 8192       # MB: phase 8's --max-memory (two chunks of the 30x)
+# phase 17's item-G layouts (62- and 61-bit window hashes with ten
+# samples): (tag, mode, --bloom-size, --nb-partitions)
+ITEM_G = (("hash_count_2e62_4", "hash:count:bin", 2**62, 4),
+          ("hash_pa_2e61_8", "hash:pa:bin", 2**61, 8))
+# phase 18's configurations on the 8x bank: (tag, k, mode, --bloom-size,
+# the host stages' run dir)
+MESH_RUNS = (("k31", 31, "kmer:count:bin", None, "host_full"),
+             ("k21", 21, "kmer:count:bin", None, "host_k21_full"),
+             ("k63", 63, "kmer:count:bin", None, "host_k63_full"),
+             ("hash_bf", 31, "hash:bf:bin", BLOOM_FULL, "host_full_hash_bf"))
+
+
+def counted_run(counters, fn) -> dict:
+    """``fn()`` with every launch counter set to 0 just before it: its
+    wall, peak device bytes and launches."""
+    reset(*counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {}
+    for c in counters:
+        launches.update(c)
+    return {"wall_s": wall, "peak_device_bytes":
+            torch.cuda.max_memory_allocated(), "launches": launches}
+
+
+def e2e_opts(fof_e2e, run_dir, eng_rd, **kw):
+    """Phase 8's options on the 30x bank (the default --max-memory), with
+    its repartition; ``kw`` overrides them."""
+    from kmtricks_tpu_torch.runtime.pipeline import PipelineOptions
+
+    nparts = len(os.listdir(os.path.join(eng_rd, "merge_infos")))
+    return PipelineOptions(**{**dict(
+        fof=fof_e2e, run_dir=run_dir, kmer_size=31, hard_min=2,
+        soft_min="2", share_min=2, recurrence_min=1, repart_from=eng_rd,
+        nb_partitions=nparts, max_memory_mb=E2E_MEM), **kw})
+
+
+def chunked_phase(fof_big, fof_e2e, eng_rd, host_g, S, MR, smi):
+    """Phase 17: the host-aggregated chunked path. Item G's writable
+    layouts on the 8x bank through the command line at ``CHUNKED_MEM``
+    (which streams them in chunks), routed to ``stage_mesh_chunked`` and
+    byte-identical to the host stages, repartition included;
+    ``stage_mesh_chunked`` called directly, streaming, on the 30x bank at
+    k = 31 against phase 8's engine run directory, and with --hist and
+    ``--soft-min 0.5`` against an engine run with the same options,
+    histograms included; K1/K2 on the largest chunk's segment stage
+    against their plain versions. Returns ({run: launches}, the K1/K2
+    report)."""
+    from kmtricks_tpu_torch.runtime import device_pipeline as DP
+    from kmtricks_tpu_torch.runtime import pipeline as P
+
+    dev = torch.device("cuda")
+    counters = (S.LAUNCHES, MR.LAUNCHES)
+    routed = []
+    real = P.stage_mesh_chunked
+
+    def recorded(*a, **kw):
+        routed.append(kw.get("use_stream", False))
+        return real(*a, **kw)
+
+    runs = {}
+    P.stage_mesh_chunked = recorded
+    try:
+        for tag, mode, bloom, nparts in ITEM_G:
+            rd = os.path.join(WORK, f"chunked_{tag}")
+            runs[tag] = counted_run(counters, lambda: port_run(
+                fof_big, rd, 31, extra=mode_args(mode, bloom) + [
+                    "--nb-partitions", str(nparts), "--max-memory",
+                    str(CHUNKED_MEM)]))
+            runs[tag]["host_stages_s"] = host_g[tag].result()
+            runs[tag]["files_bytes"] = compare_run_dirs(
+                os.path.join(WORK, f"host_{tag}"), rd)
+            shutil.rmtree(rd)
+    finally:
+        P.stage_mesh_chunked = real
+    if routed != [True] * len(ITEM_G):
+        raise AssertionError(f"item G runs took the chunked path "
+                             f"{routed}")
+
+    def direct(rd, amin_resolved, **kw):
+        """stage_mesh_chunked itself, streaming, on the 30x bank."""
+        opts = e2e_opts(fof_e2e, rd, eng_rd, **kw)
+        kmdir, config = P.stage_config(opts)
+        rep = P.stage_repart(kmdir, config, opts, dev)
+        amin = (P.resolve_soft_min(opts.soft_min, kmdir, len(kmdir.fof))
+                if amin_resolved else None)
+        DP.stage_mesh_chunked(
+            kmdir, config, opts, rep, amin, mesh=(dev,),
+            chunk_windows=int(opts.max_memory_mb * 1e6
+                              / P.BYTES_PER_WINDOW), use_stream=True)
+
+    rd = os.path.join(WORK, "chunked_e2e")
+    with kept_segment_stage(S) as seen:
+        runs["e2e_direct"] = counted_run(counters,
+                                         lambda: direct(rd, True))
+    runs["e2e_direct"]["files_bytes"] = compare_run_dirs(eng_rd, rd)
+    shutil.rmtree(rd)
+    seg = segment_kernel_report(seen, S)
+    # --hist and a float soft-min: the engine's run, then the chunked one
+    hist = dict(hist=True, soft_min="0.5")
+    eng_h = os.path.join(WORK, "engine_e2e_hist")
+    t0 = time.perf_counter()
+    P.run_pipeline(e2e_opts(fof_e2e, eng_h, eng_rd, **hist), device="cuda")
+    eng_h_s = time.perf_counter() - t0
+    rd = os.path.join(WORK, "chunked_e2e_hist")
+    runs["e2e_direct_hist"] = counted_run(
+        counters, lambda: direct(rd, False, **hist))
+    runs["e2e_direct_hist"]["files_bytes"] = compare_run_dirs(
+        eng_h, rd, RUN_SUBS + ("histograms",))
+    runs["e2e_direct_hist"]["engine_wall_s"] = eng_h_s
+    shutil.rmtree(rd)
+    shutil.rmtree(eng_h)
+    for tag, r in runs.items():
+        if not (r["launches"]["bwd"] > 0 and r["launches"]["fwd"] > 0):
+            raise AssertionError(f"chunked run {tag} skipped K1/K2: {r}")
+    emit({"phase": "chunked", "chunk_mem_mb": CHUNKED_MEM, "runs": runs,
+          "segment_kernels_largest_chunk": seg, "gpu": smi})
+    return {tag: r["launches"] for tag, r in runs.items()}, seg
+
+
+@contextlib.contextmanager
+def kept_receiver_runs(CM):
+    """While open, the largest receiver's routed runs (cloned) of each
+    word count are kept as the mesh's receivers get them (``seen``: {key
+    words: [runs]})."""
+    seen = {}
+    real = CM.merge_routed
+
+    def kept(runs):
+        n = sum(int(r[0].numel()) for r in runs)
+        nw = len(runs[0])
+        if len(runs) > 1 and n > sum(int(r[0].numel())
+                                     for r in seen.get(nw, [])):
+            seen[nw] = [tuple(w.clone() for w in r) for r in runs]
+        return real(runs)
+
+    CM.merge_routed = kept
+    try:
+        yield seen
+    finally:
+        CM.merge_routed = real
+
+
+def receiver_merge_report(runs, MR) -> dict:
+    """K3 (one word) or K4 (more, no payload) on one receiver's routed
+    runs against the plain version, ``REPEATS`` launches; device, plain
+    and (one word) ``torch.sort`` times; the one-pass bytes bound."""
+    runs = [(tuple(r), None) for r in runs]
+    nw = len(runs[0][0])
+    err = merge_err(runs, MR, REPEATS)
+    fn = lambda: MR.merge_sorted_runs_cuda(runs)  # noqa: E731
+    # two launches per pairwise merge, len(runs) - 1 merges a call
+    dev_ms = device_ms(fn, max_calls=max(3, 300 // (2 * len(runs) - 2)))
+    n = sum(int(w[0].numel()) for w, _p in runs)
+    out = {"kernel": "K3" if nw == 1 else "K4", "key_words": nw,
+           "runs": [int(w[0].numel()) for w, _p in runs], "entries": n,
+           "repeats": REPEATS, "max_abs_err": err,
+           "device_ms_3_repeats": dev_ms, "ms": median(dev_ms),
+           "call_ms": cuda_ms(fn),
+           "plain_ms": cuda_ms(lambda: MR.merge_sorted_runs_torch(runs)),
+           # each word read once and written once (a one-pass merge; the
+           # tree of pairwise merges moves them log2(runs) times)
+           "bound_ms": n * 2 * 8 * nw / HBM_BYTES_PER_S * 1e3,
+           "library_ms": None}
+    if nw == 1:
+        cat = torch.cat([w[0] for w, _p in runs])
+        out["library_ms"] = median(device_ms(
+            lambda: torch.sort(cat, stable=True), max_calls=30))
+    return out
+
+
+def mesh_phase(fof_big, fof_e2e, eng_rd, S, MR, smi):
+    """Phase 18: the mesh. The 8x bank in one step over four shards on
+    one card (and, with more than one card, one shard per card) at k =
+    31 (k3: K4 receivers), 21 (k2: K3), 63 (kw, three words: K4) and
+    ``hash:bf:bin --bloom-size 10000000`` (h1: K3), against the host
+    stages and the one-shard run; the 30x bank through the engine over
+    four shards against phase 8's run; K3 and K4 on the largest
+    receiver's own routed runs against their plain versions. Returns
+    ({run: launches}, {kernel: receiver report})."""
+    from kmtricks_tpu_torch.ops import count_merge as CM
+    from kmtricks_tpu_torch.runtime import pipeline as P
+    from kmtricks_tpu_torch.runtime import stream_engine as SE
+
+    counters = (S.LAUNCHES, MR.LAUNCHES)
+    ncards = torch.cuda.device_count()
+    meshes = {"1": ["cuda:0"], "4_on_cuda0": ["cuda:0"] * 4}
+    if ncards > 1:
+        meshes[f"{ncards}_cards"] = [f"cuda:{i}" for i in range(ncards)]
+    runs = {}
+    with kept_receiver_runs(CM) as kept:
+        for tag, k, mode, bloom, host in MESH_RUNS:
+            host_rd = os.path.join(WORK, host)
+            nparts = len(os.listdir(os.path.join(host_rd, "merge_infos")))
+            for mname, devices in meshes.items():
+                rd = os.path.join(WORK, f"mesh_{tag}_{mname}")
+                opts = P.PipelineOptions(
+                    fof=fof_big, run_dir=rd, kmer_size=k, hard_min=2,
+                    soft_min="2", share_min=2, recurrence_min=1, mode=mode,
+                    bloom_size=bloom or 10_000_000, repart_from=host_rd,
+                    nb_partitions=nparts)
+                r = runs[f"{tag} {mname}"] = counted_run(
+                    counters, lambda: P.run_pipeline(
+                        opts, device="cuda", devices=devices))
+                r.update(shards=len(devices), cards=len(set(devices)),
+                         files_bytes=compare_run_dirs(host_rd, rd,
+                                                      mode_subs(mode)))
+                if mname != "1":
+                    r["vs_one_shard_files_bytes"] = compare_run_dirs(
+                        os.path.join(WORK, f"mesh_{tag}_1"), rd,
+                        mode_subs(mode))
+            for mname in meshes:
+                shutil.rmtree(os.path.join(WORK, f"mesh_{tag}_{mname}"))
+        for mname, devices in meshes.items():
+            if mname == "1":
+                continue
+            rd = os.path.join(WORK, f"mesh_engine_{mname}")
+            SE.last_run.clear()
+            r = runs[f"engine_e2e {mname}"] = counted_run(
+                counters, lambda: P.run_pipeline(
+                    e2e_opts(fof_e2e, rd, eng_rd), device="cuda",
+                    devices=devices))
+            if SE.last_run.get("shards") != len(devices):
+                raise AssertionError(f"the 30x bank over {mname} did not "
+                                     f"take the engine: {SE.last_run}")
+            r.update(shards=len(devices), cards=len(set(devices)),
+                     engine=dict(SE.last_run),
+                     files_bytes=compare_run_dirs(eng_rd, rd))
+            shutil.rmtree(rd)
+    for tag, r in runs.items():
+        merges = sum(r["launches"][key] for key in ("K3", "K4"))
+        if r["shards"] > 1 and not merges:
+            raise AssertionError(f"mesh run {tag} merged no routed runs")
+    receivers = {f"{nw}_words": receiver_merge_report(r, MR)
+                 for nw, r in sorted(kept.items())}
+    del kept
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh", "device_count": ncards,
+          "meshes": {m: {"shards": len(d), "cards": len(set(d))}
+                     for m, d in meshes.items()},
+          "runs": runs, "receiver_merges": receivers, "gpu": smi})
+    return ({tag: r["launches"] for tag, r in runs.items()}, receivers)
 
 
 def reset(*counters) -> None:
@@ -1601,7 +1893,14 @@ def main() -> int:
             fof=fof, run_dir=os.path.join(WORK, name), k=k))
             for name, fof, k in (("host_full", fof_big, 31),
                                  ("host_k31", fof_small, 31),
-                                 ("host_k21", fof_small, 21))}
+                                 ("host_k21", fof_small, 21),
+                                 ("host_k21_full", fof_big, 21),
+                                 ("host_k63_full", fof_big, 63))}
+        # phase 17's item-G references queue behind them
+        host_g = {tag: host_pool.submit(timed_host_run, dict(
+            fof=fof_big, run_dir=os.path.join(WORK, f"host_{tag}"), k=31,
+            mode=mode, bloom_size=bloom, nb_partitions=nparts))
+            for tag, mode, bloom, nparts in ITEM_G}
 
         # 3. kernels against their plain versions on the card: the Pallas
         # test cases, then cases at the CUDA kernels' own tile
@@ -1860,6 +2159,14 @@ def main() -> int:
         # 16. the per-stage device path and the module commands
         stage_launches, stage_k = per_stage_phase(
             fof_small, fof_big, fof_e2e, eng_rd, S, MR, SE, smi)
+
+        # 17. the chunked path; 18. the mesh
+        chunked_launches, chunk_k = chunked_phase(
+            fof_big, fof_e2e, eng_rd, host_g, S, MR, smi)
+        for name in ("host_k21_full", "host_k63_full"):
+            host_refs[name].result()
+        mesh_launches, receivers = mesh_phase(fof_big, fof_e2e, eng_rd, S,
+                                              MR, smi)
     finally:
         host_pool.shutdown(cancel_futures=True)
         shutil.rmtree(WORK, ignore_errors=True)
@@ -1888,6 +2195,21 @@ def main() -> int:
     for path, counts in stage_launches.items():
         for name in ("bwd", "fwd", "K3", "K4"):
             by_path[name][path] = counts[name]
+    # the chunked path's runs (phase 17) and the mesh's runs of more than
+    # one shard (phase 18), summed
+    for name in ("bwd", "fwd", "K3", "K4"):
+        by_path[name]["chunked"] = sum(v[name] for v in
+                                       chunked_launches.values())
+        by_path[name]["mesh"] = sum(
+            v[name] for tag, v in mesh_launches.items()
+            if not tag.endswith(" 1"))
+    if not by_path["K3"]["mesh"] > 0:
+        raise AssertionError("K3 never merged a receiver's runs on the "
+                             "mesh path")
+    k3_split_mesh = sum(v["K3_split"] for tag, v in mesh_launches.items()
+                        if not tag.endswith(" 1"))
+    k3_recv = receivers["1_words"]
+    k4_recv = {key: r for key, r in receivers.items() if key != "1_words"}
     wide_k4 = {key: sum(v["K4"] for tag, v in wide_launches.items()
                         if key in tag and tag.endswith("engine"))
                for key in ("k=45", "k=63", "k=96", "k=128")}
@@ -1899,45 +2221,61 @@ def main() -> int:
                     "max_abs_err", "ms", "call_ms", "plain_ms",
                     "bound_ms")}}
 
+    def chunk_report(rep, name):
+        """The K1/K2 row's numbers on the chunked path's own inputs."""
+        return {"n": rep["n"], "rmin": rep["rmin"],
+                "save_if": rep["save_if"],
+                **{key: rep[key][name] for key in (
+                    "max_abs_err", "ms", "call_ms", "plain_ms",
+                    "bound_ms")}}
+
     emit({"kernels": [
         {"name": "segscan_bwd (K1)", "route": "cuda", "source": src,
          "replaces": "kmtricks_tpu/ops/pallas_segscan.py:123",
          "launches": launches["bwd"],
          "launches_by_path": by_path["bwd"],
-         "max_abs_err": max(errs[0], stage_k["max_abs_err"]["K1"]),
+         "max_abs_err": max(errs[0], stage_k["max_abs_err"]["K1"],
+                            chunk_k["max_abs_err"]["K1"]),
          "ms": times["K1"], "call_ms": times["K1_call"],
          "plain_ms": times["K1_plain"],
          "bound_ms": bound["K1"], "bound_by": "bytes", "library_ms": None,
          # one sample's segment stage of the per-stage path (phase 16)
-         "per_stage": per_stage("K1")},
+         "per_stage": per_stage("K1"),
+         # the largest chunk's segment stage of the chunked path (17)
+         "chunked": chunk_report(chunk_k, "K1")},
         {"name": "segscan_fwd (K2)", "route": "cuda", "source": src,
          "replaces": "kmtricks_tpu/ops/pallas_segscan.py:176",
          "launches": launches["fwd"],
          "launches_by_path": by_path["fwd"],
-         "max_abs_err": max(errs[1], stage_k["max_abs_err"]["K2"]),
+         "max_abs_err": max(errs[1], stage_k["max_abs_err"]["K2"],
+                            chunk_k["max_abs_err"]["K2"]),
          "ms": times["K2"], "call_ms": times["K2_call"],
          "plain_ms": times["K2_plain"],
          "bound_ms": bound["K2"], "bound_by": "bytes", "library_ms": None,
-         "per_stage": per_stage("K2")},
-        # K3 is not on this slice's path (the one-word, payload-free form
-        # merges multi-GPU receivers' runs): its launches are 0 here
+         "per_stage": per_stage("K2"),
+         "chunked": chunk_report(chunk_k, "K2")},
+        # K3 (one word, no payload) merges the mesh's k2/h1/h2 receivers'
+        # routed runs: its launches are the mesh path's (phase 18)
         {"name": "merge_runs one word (K3)", "route": "cuda",
          "source": msrc, "replaces": "kmtricks_tpu/ops/pallas_sort.py:136",
-         "launches": eng_launches["K3"],
+         "launches": by_path["K3"]["mesh"],
          "launches_by_path": by_path["K3"],
-         "partition_launches": eng_launches["K3_split"],
-         "max_abs_err": merrs["K3"],
+         "partition_launches": k3_split_mesh,
+         "max_abs_err": max(merrs["K3"], k3_recv["max_abs_err"]),
          "ms": mtimes["K3"], "call_ms": mtimes["K3_call"],
          "plain_ms": mtimes["K3_plain"],
          "bound_ms": mbound["K3"], "bound_by": "bytes",
-         "library_ms": mtimes["K3_library"]},
+         "library_ms": mtimes["K3_library"],
+         # the largest k2/h1/h2 receiver's routed runs (phase 18)
+         "mesh_receiver": k3_recv},
         {"name": "merge_runs words + count (K4)", "route": "cuda",
          "source": msrc, "replaces": "kmtricks_tpu/ops/pallas_sort.py:318",
          "launches": eng_launches["K4"],
          "launches_by_path": by_path["K4"],
          "partition_launches": eng_launches["K4_split"],
-         "max_abs_err": max(merrs["K4"], k4_hash["max_abs_err"],
-                            k4_wide_a["max_abs_err"]),
+         "max_abs_err": max([merrs["K4"], k4_hash["max_abs_err"],
+                             k4_wide_a["max_abs_err"]]
+                            + [r["max_abs_err"] for r in k4_recv.values()]),
          "ms": mtimes["K4"], "call_ms": mtimes["K4_call"],
          "plain_ms": mtimes["K4_plain"],
          "bound_ms": mbound["K4"], "bound_by": "bytes", "library_ms": None,
@@ -1948,7 +2286,9 @@ def main() -> int:
          "wide_phase_a": {key: k4_wide_a[key] for key in (
              "key_words", "max_abs_err", "ms", "call_ms", "plain_ms",
              "bound_ms")},
-         "wide_parity_engine_launches": wide_k4},
+         "wide_parity_engine_launches": wide_k4,
+         # the largest k3 and kw receivers' routed runs (phase 18)
+         "mesh_receivers": k4_recv},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,15 +8,16 @@ device path is ported module by module, each TPU kernel as a CUDA kernel
 written by hand with a plain PyTorch version beside it.
 
 Ported: every subcommand of ``python -m kmtricks_tpu`` (pipeline,
-repart, superk, count, merge, dump, aggregate, combine, filter, infos) on
-one GPU, every ``--mode`` (k-mer and hash counts; count, pa, bf, bft and
-bfc matrices; bin and text outputs) for k <= 128, with every backend:
-``auto`` (the fused one-step path or the streaming engine, or the
+repart, superk, count, merge, dump, aggregate, combine, filter, infos),
+every ``--mode`` (k-mer and hash counts; count, pa, bf, bft and bfc
+matrices; bin and text outputs) for k <= 128, with every backend:
+``auto`` (the fused one-step path, the streaming engine or, for sort
+layouts no packed word takes, the host-aggregated chunked path; or the
 per-stage device path for ``--until``, ``--restrict-to[-list]``,
 ``--minimizer-type 1`` and ``--kff-output``), ``device``, ``mesh`` and
-``host`` (numpy). The fused path refuses (NotImplementedError) the sort
-layouts that only the JAX package's host-aggregated
-``stage_mesh_chunked`` takes; more than one GPU is not ported.
+``host`` (numpy). The fused path runs in one process over a mesh of
+devices (every visible GPU by default); several processes are not
+ported yet.
 
 Layout (each module names its ``kmtricks_tpu`` counterpart):
   constants.py, core/, host/, io/, native/
@@ -25,7 +26,7 @@ Layout (each module names its ``kmtricks_tpu`` counterpart):
              run merge (CUDA K3/K4), the engine's table ops, the
              repartition tally, the per-sample count and the
              per-partition merge of the per-stage path
-  parallel/  the fused single-device step and the engine's device steps
+  parallel/  the mesh, the route, the fused step and the engine's steps
   runtime/   the pipeline and its stages, the module commands, superk,
              filter, combine, config and run directory
   csrc/      CUDA sources, built at first use by _build.py

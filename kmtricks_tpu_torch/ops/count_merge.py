@@ -33,9 +33,14 @@ Where the JAX package's ``packed_layout`` returns None (for one sample:
 window hashes of 63 or more bits, or more than 2^31 partitions),
 :func:`count_merge_keys` takes the JAX package's generic branch instead:
 an exact lexicographic sort of the unpacked fields (:func:`sort_unpacked`)
-before the same segment stage. The streaming engine and the fused step
-still refuse those layouts (:func:`stream_layout`; the JAX package's
-``stage_mesh_chunked`` is not ported).
+before the same segment stage. :func:`stream_layout` returns None there,
+as the JAX package's does, and the fused path takes the host-aggregated
+``runtime/device_pipeline.py::stage_mesh_chunked`` instead of the engine.
+
+Over a mesh, each receiver gets one ascending run of packed words from
+every shard; :func:`count_merge_packed` merges them (kernel K3 for one
+word, K4 for more) before the segment stage, and :func:`part_of_sorted`
+gives the router each sorted entry's partition.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from kmtricks_tpu_torch.ops.encode import device_key_words
+from kmtricks_tpu_torch.ops.merge_runs import merge_sorted_runs
 from kmtricks_tpu_torch.ops.segscan import INT32_MAX, segment_stage
 from kmtricks_tpu_torch.ops.u64 import flip, lex_perm, shr
 
@@ -82,25 +88,15 @@ def packed_layout(nsamp: int, key_bits: int, part_bits: int | None,
 
 
 def stream_layout(k: int, nb_parts: int, nsamp: int, mode: str = "kmer",
-                  window_bits: int | None = None) -> str:
+                  window_bits: int | None = None) -> str | None:
     """The streaming engine's and the fused step's packed layout
-    (counterpart of ``kmtricks_tpu/parallel/pipeline.py::stream_layout``);
-    raises NotImplementedError where the JAX package's returns None (it
-    takes the host-aggregated ``stage_mesh_chunked`` there, which is not
-    ported)."""
+    (counterpart of ``kmtricks_tpu/parallel/pipeline.py::stream_layout``),
+    or None where no layout packs: the fused path then takes the
+    host-aggregated ``stage_mesh_chunked`` instead of the engine."""
     if mode == "hash":
-        key_bits = hash_key_bits(window_bits, nb_parts)
-        layout = packed_layout(nsamp, key_bits, None, part_follows_keys=True)
-    else:
-        key_bits = 2 * k
-        layout = packed_layout(nsamp, key_bits,
-                               (nb_parts - 1).bit_length())
-    if layout is None:
-        raise NotImplementedError(
-            f"no packed sort layout for {nsamp} samples, {nb_parts} "
-            f"partitions and {key_bits}-bit {mode} keys (the JAX package's "
-            "stage_mesh_chunked is not ported)")
-    return layout
+        return packed_layout(nsamp, hash_key_bits(window_bits, nb_parts),
+                             None, part_follows_keys=True)
+    return packed_layout(nsamp, 2 * k, (nb_parts - 1).bit_length())
 
 
 def _kw_params(layout: str, nsamp: int):
@@ -198,6 +194,26 @@ def pack_words(layout: str, part, keys, samp, valid, nsamp: int):
     if valid is None:
         return words
     return tuple(torch.where(valid, w, INT64_MAX) for w in words)
+
+
+def part_of_sorted(layout: str, ws, nsamp: int,
+                   window_bits: int | None = None) -> torch.Tensor:
+    """The partition of each packed entry (int64; counterpart of
+    ``part_of_sorted``): the router's destinations. Hash layouts decode it
+    as key // ``window_bits``."""
+    sb = _samp_bits(nsamp)
+    if layout in ("h1", "h2"):
+        return (ws[0] >> sb) // window_bits
+    if layout.startswith("k2."):
+        return ws[0] >> (_k2_params(layout)[1] + sb)
+    if layout == "k3":
+        return ws[0] >> 32
+    if layout.startswith("kw."):
+        _samp, _keys, (po, pw), _n64 = _kw_fields(layout, nsamp)
+        if not pw:
+            return torch.zeros_like(ws[0])
+        return _bits_from(ws[::-1], po, pw)
+    raise NotImplementedError(layout)
 
 
 def sort_packed(layout: str, words):
@@ -328,16 +344,56 @@ def count_merge_keys(part, keys, samp, valid, amin_vec, *, nsamp: int,
     """
     layout = packed_layout(nsamp, key_bits, part_bits, part_follows_keys)
     if layout is None:
-        part_s, key_s, samp_s, valid_s, occ_d, kd = sort_unpacked(
-            part, keys, samp, valid, part_follows_keys)
+        unpacked = sort_unpacked(part, keys, samp, valid, part_follows_keys)
     else:
         words = pack_words(layout, part, keys, samp, valid, nsamp)
         ws = sort_packed(layout, words)
-        part_s, key_s, samp_s, valid_s, occ_d, kd = unpack_sorted(
-            layout, ws, nsamp, valid.sum(), window_bits)
+        unpacked = unpack_sorted(layout, ws, nsamp, valid.sum(), window_bits)
+    return _segment(unpacked, amin_vec, hard_min=hard_min, rmin=rmin,
+                    save_if=save_if, count_max=count_max,
+                    hard_min_vec=hard_min_vec)
+
+
+def count_merge_packed(sorted_runs, amin_vec, *, layout: str, nsamp: int,
+                       hard_min: int, rmin: int, save_if: int,
+                       count_max: int = 0xFFFFFFFF, hard_min_vec=None,
+                       window_bits: int | None = None):
+    """:func:`count_merge_keys` over one receiver's routed runs of packed
+    sort words (counterpart of ``count_merge_packed(sorted_runs=)``):
+    ``sorted_runs`` is a list of ascending runs of valid occurrences, each
+    a tuple of the layout's int64 words (exactly sized, maybe empty),
+    which :func:`merge_routed` merges (K3 for one word, K4 without
+    payload for more; one run needs no merge). Unlike the JAX package,
+    which merges routed runs only where its ``_use_routed_merge`` says so
+    and re-sorts elsewhere, the runs are merged on every device: equal
+    packed words are equal values, so a merge and a sort give the same
+    bits. Same outputs as :func:`count_merge_keys`."""
+    ws = merge_routed(sorted_runs)
+    unpacked = unpack_sorted(layout, ws, nsamp, ws[0].shape[0], window_bits)
+    return _segment(unpacked, amin_vec, hard_min=hard_min, rmin=rmin,
+                    save_if=save_if, count_max=count_max,
+                    hard_min_vec=hard_min_vec)
+
+
+def merge_routed(runs) -> tuple:
+    """One receiver's routed runs (ascending tuples of int64 sort words,
+    exactly sized, maybe empty) -> one ascending run: one run as it is,
+    more through the run merge (K3 for one word, K4 without payload for
+    more)."""
+    if len(runs) == 1:
+        return tuple(runs[0])
+    return merge_sorted_runs([(tuple(r), None) for r in runs])[0]
+
+
+def _segment(unpacked, amin_vec, *, hard_min: int, rmin: int, save_if: int,
+             count_max: int, hard_min_vec):
+    """The segment stage (K1/K2) over :func:`unpack_sorted`'s outputs ->
+    the outputs of :func:`count_merge_keys`."""
+    part_s, key_s, samp_s, valid_s, occ_d, kd = unpacked
+    n = valid_s.shape[0]
     ones = torch.ones(1, dtype=torch.bool, device=kd.device)
-    key_diff = torch.cat([ones, kd])
-    occ_diff = torch.cat([ones, occ_d])
+    key_diff = torch.cat([ones, kd])[:n]
+    occ_diff = torch.cat([ones, occ_d])[:n]
     amin_of = _thresholds(amin_vec, samp_s, 0)
     hmin_of = _thresholds(hard_min_vec, samp_s, hard_min)
     cnt, present, _solid, final, row_head, row_keep, row_of = segment_stage(

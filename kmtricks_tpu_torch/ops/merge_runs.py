@@ -22,6 +22,7 @@ the other.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -31,8 +32,10 @@ from kmtricks_tpu_torch.ops.u64 import lex_perm
 MAX_WORDS = 5       # the kw layouts' int64 sort words at k <= 128
 
 # kernel launches, counted where the wrapper launches them: each pairwise
-# merge is one partition launch (``*_split``) and one merge launch
+# merge is one partition launch (``*_split``) and one merge launch (under a
+# lock: the shards of a mesh merge on host threads of their own)
 LAUNCHES = {"K3": 0, "K4": 0, "K3_split": 0, "K4_split": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def merge_sorted_runs_torch(runs):
@@ -148,6 +151,7 @@ def _merge_two_cuda(a, b, lib, stream):
         raise RuntimeError(f"merge_runs launch failed: "
                            f"{lib.km_error_string(err).decode()}")
     kern = "K4" if op is not None or nw > 1 else "K3"
-    LAUNCHES[kern] += 1
-    LAUNCHES[f"{kern}_split"] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[kern] += 1
+        LAUNCHES[f"{kern}_split"] += 1
     return ow, op

@@ -34,7 +34,7 @@ _LAUNCHES_LOCK = threading.Lock()
 def _next_after(flag, idx, n):
     """First index > i where ``flag`` holds (else n)."""
     suf = torch.cummin(torch.where(flag, idx, n).flip(0), 0).values.flip(0)
-    return torch.cat([suf[1:], suf.new_full((1,), n)])
+    return torch.cat([suf[1:], suf.new_full((1,), n)])[:n]
 
 
 def segscan_bwd_torch(occ_diff, key_diff, valid, amin_of, hmin_of, *,

@@ -1,29 +1,150 @@
-"""Device steps on one GPU: reads -> dense count rows.
+"""Device steps: reads -> dense count rows, on one GPU or over a mesh.
 
 Counterparts of ``kmtricks_tpu/parallel/pipeline.py`` (k-mer and hash
-mode, k <= 128), as plain functions on tensors (no mesh, no collective):
+mode, k <= 128), as plain functions on tensors:
 
-* :func:`build_single_chip_step` (``build_single_chip_step``): encode
-  (and the window hash), count+merge (sort and segment stage), then
-  compaction, in one step;
+* the mesh (:func:`make_mesh`, :func:`partition_to_device`): a tuple of
+  torch devices, one per shard, where a device may repeat (a mesh of four
+  shards on one card, or on the CPU, as the JAX tests place an 8-device
+  mesh on one CPU); each shard owns a contiguous block of partitions;
+* :func:`build_sharded_pipeline` (``build_sharded_pipeline``, and
+  ``build_single_chip_step`` with a mesh of one device): encode (and the
+  window hash), count+merge (sort and segment stage), then compaction, in
+  one step over a mesh. Each shard encodes its rows, packs and sorts its
+  words and
+  routes them to the owners of their partitions (:func:`_route_sorted`;
+  :func:`_bucket_and_route` for keys no layout packs); each receiver
+  merges what it gets (``ops/count_merge.py::count_merge_packed``, kernel
+  K3 or K4) and runs the segment stage and the compaction;
 * the streaming engine's steps: :func:`build_chunk_pairs_step` (one
-  chunk -> one sorted pair run), the fold (``build_table_merge``, here
+  chunk -> one sorted pair run per shard), the fold (``build_table_merge``, here
   ``ops/table.py::merge_pair_streams``), phase A
   :func:`table_sort_collapse`, phase B :func:`table_compact`, and the pa
-  finalize :func:`merge_finalize_bits` (``build_merge_finalize_bits``).
+  finalize :func:`merge_finalize_bits` (``build_merge_finalize_bits``),
+  each run per shard by the engine.
+
+Where the JAX package pads each destination to a fixed ``cap`` with
+sentinels for one ``all_to_all``, and counts what overflows, the port
+splits each shard's sorted words into exactly sized runs and copies each
+to its owner's device: nothing is dropped and nothing re-runs.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
+
+import numpy as np
 import torch
 
 from kmtricks_tpu_torch.ops.compact import compact_count_rows
 from kmtricks_tpu_torch.ops.count_merge import (
-    count_merge_keys, hash_key_bits, pack_words, sort_packed, stream_layout,
+    count_merge_keys, count_merge_packed, hash_key_bits, merge_routed,
+    pack_words, packed_layout, part_of_sorted, sort_packed, stream_layout,
     unpack_sorted)
 from kmtricks_tpu_torch.ops.encode import encode_batch, encode_batch_wide
 from kmtricks_tpu_torch.ops.table import chunk_count_pairs, merge_pair_streams
 from kmtricks_tpu_torch.ops.xxh64 import window_hash
+
+
+def make_mesh(devices=None) -> tuple:
+    """The mesh: a tuple of torch devices, one per shard; a device may
+    repeat. ``None`` takes every visible CUDA device, as the JAX
+    package's ``make_mesh()`` takes every device (one shard on a machine
+    with one card)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available")
+        return tuple(torch.device("cuda", i)
+                     for i in range(torch.cuda.device_count()))
+    mesh = tuple(torch.device(d) for d in devices)
+    if not mesh:
+        raise ValueError("make_mesh: no devices")
+    # "cuda" names the current card: give it its index, as tensors do
+    return tuple(torch.device("cuda", torch.cuda.current_device())
+                 if d.type == "cuda" and d.index is None else d
+                 for d in mesh)
+
+
+def partition_to_device(nb_parts: int, ndev: int) -> np.ndarray:
+    """The shard that owns each partition: contiguous blocks,
+    ``p * ndev // nb_parts`` (the JAX package's mapping)."""
+    return np.arange(nb_parts, dtype=np.int64) * ndev // nb_parts
+
+
+def _each_shard(mesh, fn) -> list:
+    """``[fn(d) for each shard d]``, on one host thread per shard when the
+    mesh spans more than one device (each shard's exact sizing syncs its
+    device with the host, which would otherwise serialise the devices),
+    in shard order otherwise."""
+    def run(d):
+        dev = mesh[d]
+        with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
+            return fn(d)
+
+    if len(set(mesh)) > 1:
+        with ThreadPoolExecutor(max_workers=len(mesh)) as ex:
+            return list(ex.map(run, range(len(mesh))))
+    return [run(d) for d in range(len(mesh))]
+
+
+def _send(ts, dev):
+    """Tensors (or None, in nested tuples) on ``dev``: nothing moves where
+    they are already there (a device repeated in the mesh). Between two
+    cards torch's device-to-device copy records an event on the source's
+    current stream and makes the destination's current stream wait on
+    it, so the receiver's kernels see the whole run; from pinned host
+    memory the upload runs asynchronously."""
+    def move(t):
+        if isinstance(t, tuple):
+            return tuple(move(x) for x in t)
+        if t is None or t.device == dev:
+            return t
+        return t.to(dev, non_blocking=True)
+
+    return move(ts)
+
+
+def _dest_bounds(dest, ndev: int) -> list:
+    """Start of each destination's block in a non-decreasing ``dest``, and
+    the end: (ndev + 1,) host ints."""
+    q = torch.arange(ndev + 1, dtype=dest.dtype, device=dest.device)
+    return torch.searchsorted(dest, q).tolist()
+
+
+def _route_sorted(layout: str, ws, mesh, *, nsamp: int, nb_parts: int,
+                  window_bits: int | None = None) -> list:
+    """One shard's sorted packed words -> the run for each shard, on that
+    shard's device (counterpart of ``_route_sorted``). The partition
+    leads the k-mer layouts, and in hash layouts it is key // window, so
+    the destinations are non-decreasing along the sorted words and each
+    run is a slice, exactly sized (maybe empty)."""
+    ndev = len(mesh)
+    if ndev == 1:
+        return [_send(tuple(ws), mesh[0])]
+    dest = part_of_sorted(layout, ws, nsamp, window_bits) * ndev // nb_parts
+    b = _dest_bounds(dest, ndev)
+    return [_send(tuple(w[b[d]:b[d + 1]] for w in ws), mesh[d])
+            for d in range(ndev)]
+
+
+def _bucket_and_route(part, keys, samp, mesh, *, nb_parts: int) -> list:
+    """One shard's valid occurrences (keys no layout packs) -> the
+    (part, keys, samp) of each shard's partitions, on that shard's device
+    (counterpart of ``_bucket_and_route``): a stable grouping sort by
+    destination, then exactly sized slices; the receiver sorts them
+    (``ops/count_merge.py::sort_unpacked``)."""
+    ndev = len(mesh)
+    if ndev == 1:
+        return [_send((part, keys, samp), mesh[0])]
+    dest = part.to(torch.int64) * ndev // nb_parts
+    order = torch.argsort(dest, stable=True)
+    b = _dest_bounds(dest[order], ndev)
+    part, samp = part[order], samp[order]
+    keys = _on_words(keys, lambda w: w[order])
+    return [_send((part[b[d]:b[d + 1]],
+                   _on_words(keys, lambda w: w[b[d]:b[d + 1]]),
+                   samp[b[d]:b[d + 1]]), mesh[d]) for d in range(ndev)]
 
 
 def _on_words(keys, f):
@@ -45,64 +166,166 @@ def encode(batch, lengths, repart_table, *, k: int, m: int,
                mmer_canonical=mmer_canonical, static_parts=static_parts)
 
 
-def build_single_chip_step(*, k: int, m: int, nsamp: int, nb_parts: int,
-                           hard_min: int = 1, rmin: int = 1,
+def _shard_occurrences(batch, lengths, samp, repart_table, *, k: int,
+                       m: int, mode: str, window_bits, mmer_canonical: bool,
+                       static_parts):
+    """One shard's rows -> its valid occurrences (part, keys, samp): the
+    encode, the window hash in hash mode, and the validity mask."""
+    keys, parts, valid = encode(batch, lengths, repart_table, k=k, m=m,
+                                mmer_canonical=mmer_canonical,
+                                static_parts=static_parts)
+    sampw = samp[:, None].expand(parts.shape)
+    keys, parts = _on_words(keys, lambda w: w[valid]), parts[valid]
+    if mode == "hash":
+        keys = window_hash(keys, parts, window_bits)
+    return parts, keys, sampw[valid]
+
+
+def _shard_rows(mesh, *ts) -> list:
+    """Split row-major inputs over the shards (contiguous row blocks of
+    near-equal size): one tuple of row blocks per shard."""
+    return list(zip(*(torch.tensor_split(t, len(mesh)) for t in ts)))
+
+
+def _cat_fields(got):
+    """The (part, keys, samp) a receiver got from each shard, joined (keys
+    one tensor or a tuple of words)."""
+    part = torch.cat([g[0] for g in got])
+    samp = torch.cat([g[2] for g in got])
+    if isinstance(got[0][1], tuple):
+        keys = tuple(torch.cat([g[1][j] for g in got])
+                     for j in range(len(got[0][1])))
+    else:
+        keys = torch.cat([g[1] for g in got])
+    return part, keys, samp
+
+
+def _per_device(mesh, t) -> dict:
+    """``t`` placed once on each distinct device of the mesh."""
+    return {dev: _send(t, dev) for dev in set(mesh)}
+
+
+def build_sharded_pipeline(mesh, *, k: int, m: int, nsamp: int,
+                           nb_parts: int, hard_min: int = 1, rmin: int = 1,
                            save_if: int = 0, count_max: int = 0xFFFFFFFF,
                            hard_min_vec=None, mmer_canonical: bool = True,
                            max_rows: int | None = None, mode: str = "kmer",
                            window_bits: int | None = None,
                            static_parts: int | None = None):
     """Return ``step(batch, lengths, samp, repart_table, amin_vec)`` over
-    tensors on one device (see :func:`~kmtricks_tpu_torch.convert.
-    from_jax_inputs`), giving compact_count_rows' (rows, pre, nrows, maxc,
-    npres). ``mode="hash"`` counts window hashes of ``window_bits``-bit
-    windows instead of k-mers (the rows' key column holds the hash);
-    ``static_parts`` as :func:`encode`."""
+    the mesh (counterpart of ``build_sharded_pipeline`` with its row
+    compaction): a list with one compact_count_rows' (rows, pre, nrows,
+    maxc, npres) per shard, on its device, covering the partitions it
+    owns (:func:`partition_to_device`); with one shard, the outputs of the
+    JAX package's ``build_single_chip_step`` with its compaction.
+
+    Inputs (as :func:`~kmtricks_tpu_torch.convert.from_jax_inputs` makes
+    them, on any device): batch (B, L) uint8, lengths (B,) int32, sample
+    ids (B,) int32, the repartition table (4^m,) int32 and the soft-mins
+    (nsamp,) int32; ``hard_min_vec`` (nsamp,) int32 or None. The rows
+    split over the shards in contiguous blocks and each block goes to its
+    shard's device; ``mode="hash"`` counts window hashes of
+    ``window_bits``-bit windows instead of k-mers (the rows' key column
+    holds the hash), ``static_parts`` = nb_partitions computes
+    --static-repart partitions. Each shard encodes its rows and keeps the
+    valid windows; where a layout packs (k2, k3, kw; h1/h2) it packs and
+    sorts them and routes the sorted words (:func:`_route_sorted`), and
+    each receiver merges its runs (``count_merge_packed``: K3 or K4);
+    otherwise it routes the unsorted occurrences
+    (:func:`_bucket_and_route`) and each receiver sorts them
+    (``count_merge_keys``' generic branch). Then the segment stage (K1/K2)
+    and the compaction; ``max_rows`` bounds each shard's rows."""
     hashed = mode == "hash"
     key_bits = hash_key_bits(window_bits, nb_parts) if hashed else 2 * k
+    part_bits = None if hashed else (nb_parts - 1).bit_length()
+    layout = packed_layout(nsamp, key_bits, part_bits,
+                           part_follows_keys=hashed)
+    ndev = len(mesh)
+    hmv = _per_device(mesh, hard_min_vec)
+    enc = dict(k=k, m=m, mode=mode, window_bits=window_bits,
+               mmer_canonical=mmer_canonical, static_parts=static_parts)
 
     def step(batch, lengths, samp, repart_table, amin_vec):
-        keys, parts, valid = encode(batch, lengths, repart_table, k=k, m=m,
-                                    mmer_canonical=mmer_canonical,
-                                    static_parts=static_parts)
-        if hashed:
-            keys = window_hash(keys, parts, window_bits)
-        sampw = samp[:, None].expand(parts.shape).reshape(-1)
-        (part_s, key_s, samp_s, _final, cnt, present, row_head, _row_keep,
-         _row_of) = count_merge_keys(
-            parts.reshape(-1), _on_words(keys, lambda w: w.reshape(-1)),
-            sampw, valid.reshape(-1),
-            amin_vec, nsamp=nsamp, hard_min=hard_min, rmin=rmin,
-            save_if=save_if, count_max=count_max, key_bits=key_bits,
-            part_bits=(nb_parts - 1).bit_length(),
-            hard_min_vec=hard_min_vec, part_follows_keys=hashed,
-            window_bits=window_bits)
-        return compact_count_rows(part_s, key_s, samp_s, cnt, present,
-                                  row_head, nsamp=nsamp, max_rows=max_rows)
+        rows = _shard_rows(mesh, batch, lengths, samp)
+        tables = _per_device(mesh, (repart_table, amin_vec))
+
+        def send(d):
+            b, ln, sa = _send(rows[d], mesh[d])
+            part, keys, sampw = _shard_occurrences(
+                b, ln, sa, tables[mesh[d]][0], **enc)
+            if layout is None:
+                return _bucket_and_route(part, keys, sampw, mesh,
+                                         nb_parts=nb_parts)
+            words = pack_words(layout, part, keys, sampw, None, nsamp)
+            return _route_sorted(layout, sort_packed(layout, words), mesh,
+                                 nsamp=nsamp, nb_parts=nb_parts,
+                                 window_bits=window_bits)
+
+        sent = _each_shard(mesh, send)
+
+        def receive(d):
+            dev = mesh[d]
+            got = [sent[src][d] for src in range(ndev)]
+            kw = dict(nsamp=nsamp, hard_min=hard_min, rmin=rmin,
+                      save_if=save_if, count_max=count_max,
+                      hard_min_vec=hmv[dev], window_bits=window_bits)
+            if layout is None:
+                part, keys, samp_r = _cat_fields(got)
+                out = count_merge_keys(
+                    part, keys, samp_r, torch.ones_like(part, dtype=torch.bool),
+                    tables[dev][1], key_bits=key_bits, part_bits=part_bits,
+                    part_follows_keys=hashed, **kw)
+            else:
+                out = count_merge_packed(got, tables[dev][1], layout=layout,
+                                         **kw)
+            part_s, key_s, samp_s, _final, cnt, present, row_head, _k, _r = \
+                out
+            return compact_count_rows(part_s, key_s, samp_s, cnt, present,
+                                      row_head, nsamp=nsamp,
+                                      max_rows=max_rows)
+
+        return _each_shard(mesh, receive)
 
     return step
 
 
-def build_chunk_pairs_step(*, k: int, m: int, nsamp: int, nb_parts: int,
-                           mmer_canonical: bool = True, mode: str = "kmer",
-                           window_bits: int | None = None,
+def build_chunk_pairs_step(mesh, *, k: int, m: int, nsamp: int,
+                           nb_parts: int, mmer_canonical: bool = True,
+                           mode: str = "kmer", window_bits: int | None = None,
                            static_parts: int | None = None):
     """Return ``step(batch, lengths, samp, repart_table)`` -> one sorted
-    pair run (words tuple, cnt int64) of the chunk's valid windows:
-    encode (and hash), pack, sort, then :func:`~kmtricks_tpu_torch.ops.
-    table.chunk_count_pairs`. Inputs as for :func:`build_single_chip_step`."""
+    pair run (words tuple, cnt int64) per shard, on its device
+    (counterpart of ``build_chunk_pairs_step``): each shard
+    encodes its rows of the chunk, packs, sorts and routes its valid
+    windows (:func:`_route_sorted`); each receiver merges its runs (K3 or
+    K4, no payload) before ``ops/table.py::chunk_count_pairs``. Inputs as
+    for :func:`build_sharded_pipeline`; the layout must pack
+    (``stream_layout``). One device: a mesh of that device, and the only
+    run of the list."""
     layout = stream_layout(k, nb_parts, nsamp, mode, window_bits)
+    if layout is None:
+        raise ValueError("the chunk pairs step needs a packed layout "
+                         "(stage_mesh_chunked takes the others)")
+    ndev = len(mesh)
+    enc = dict(k=k, m=m, mode=mode, window_bits=window_bits,
+               mmer_canonical=mmer_canonical, static_parts=static_parts)
 
     def step(batch, lengths, samp, repart_table):
-        keys, parts, valid = encode(batch, lengths, repart_table, k=k, m=m,
-                                    mmer_canonical=mmer_canonical,
-                                    static_parts=static_parts)
-        sampw = samp[:, None].expand(parts.shape)
-        keys, parts = _on_words(keys, lambda w: w[valid]), parts[valid]
-        if mode == "hash":
-            keys = window_hash(keys, parts, window_bits)
-        words = pack_words(layout, parts, keys, sampw[valid], None, nsamp)
-        return chunk_count_pairs(sort_packed(layout, words))
+        rows = _shard_rows(mesh, batch, lengths, samp)
+        tables = _per_device(mesh, repart_table)
+
+        def send(d):
+            b, ln, sa = _send(rows[d], mesh[d])
+            part, keys, sampw = _shard_occurrences(
+                b, ln, sa, tables[mesh[d]], **enc)
+            words = pack_words(layout, part, keys, sampw, None, nsamp)
+            return _route_sorted(layout, sort_packed(layout, words), mesh,
+                                 nsamp=nsamp, nb_parts=nb_parts,
+                                 window_bits=window_bits)
+
+        sent = _each_shard(mesh, send)
+        return _each_shard(mesh, lambda d: chunk_count_pairs(merge_routed(
+            [sent[src][d] for src in range(ndev)])))
 
     return step
 

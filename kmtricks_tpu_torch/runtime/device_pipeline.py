@@ -1,19 +1,26 @@
-"""One-device fused count+merge, and the host input path of the engine.
+"""The fused count+merge over a mesh, the host-aggregated chunked path,
+and the host input path of the engine.
 
 Counterpart of ``kmtricks_tpu/runtime/device_pipeline.py``:
 
-* :func:`stage_count_merge` (``stage_mesh_count_merge`` on one device,
-  k-mer or hash keys): all samples' reads form one (B, L) batch, the
-  fused step
-  (:mod:`kmtricks_tpu_torch.parallel.pipeline`) counts and merges them
-  into dense rows on the device, and the host rebuilds rescue/keep/
-  statistics per partition (``host/ops.py::merge_dense``) and writes them
-  with the writers of :mod:`kmtricks_tpu_torch.runtime.pipeline`, so the
-  run directory is byte-identical;
+* :func:`stage_mesh_count_merge` (``stage_mesh_count_merge``, k-mer or
+  hash keys): all samples' reads form one (B, L) batch, its rows split
+  over the mesh's shards, and the sharded step
+  (:func:`~kmtricks_tpu_torch.parallel.pipeline.build_sharded_pipeline`)
+  counts and merges them into dense rows on each shard; the host rebuilds
+  rescue/keep/statistics per partition (``host/ops.py::merge_dense``) and
+  each partition's owner writes it with the writers of
+  :mod:`kmtricks_tpu_torch.runtime.pipeline`, so the run directory is
+  byte-identical;
+* :func:`stage_mesh_chunked` (``stage_mesh_chunked``): the path for sort
+  layouts no packed word takes (``stream_layout`` None): each chunk runs
+  the sharded step as a pure counter and the host aggregates the counts
+  across chunks in exact uint64 before the hard-mins, histograms,
+  soft-min and merges;
 * the streaming engine's host side (numpy): :func:`stream_row_chunks`
-  over :func:`_stream_sample_blocks`, :func:`prefetched`, and the routing
-  predicates. They are duplicated, not imported, because the JAX module
-  imports ``jax.numpy`` at its top.
+  over :func:`_stream_sample_blocks`, :func:`prefetched`,
+  :func:`chunk_source`, and the routing predicates. They are duplicated,
+  not imported, because the JAX module imports ``jax.numpy`` at its top.
 """
 
 from __future__ import annotations
@@ -25,12 +32,17 @@ import threading
 
 import numpy as np
 
+import torch
+
 from kmtricks_tpu_torch.convert import from_jax_inputs
 from kmtricks_tpu_torch.core.hashers import HashWindow
+from kmtricks_tpu_torch.core.histogram import KHist
 from kmtricks_tpu_torch.host import ops as hops
+from kmtricks_tpu_torch.io import formats as F
 from kmtricks_tpu_torch.io import sequences as seqio
 from kmtricks_tpu_torch.ops.encode import device_key_words
-from kmtricks_tpu_torch.parallel.pipeline import build_single_chip_step
+from kmtricks_tpu_torch.parallel.pipeline import (
+    build_sharded_pipeline, partition_to_device)
 
 log = logging.getLogger("kmtricks_tpu")
 
@@ -226,9 +238,45 @@ def _pow2ceil(x: int) -> int:
     return 1 << max(0, int(x - 1).bit_length())
 
 
-def _load_global_batch(kmdir, opts):
+MAX_READ_LEN = 4096     # longer reads split into overlapping segments
+
+
+def chunk_source(kmdir, opts, k, chunk_windows, batch, lengths, sarr,
+                 use_stream):
+    """Host chunks of about ``chunk_windows`` windows as numpy (rows, L)
+    uint8 batches with lengths and sample ids, and the rows per chunk:
+    decoded from the banks (rows of the longest read, at most
+    MAX_READ_LEN), or slices of the loaded batch."""
+    if use_stream:
+        longest = max(seqio.estimate(e.paths).max_size for e in kmdir.fof)
+        L = max(k, min(longest, MAX_READ_LEN))
+    else:
+        L = batch.shape[1]
+    rows = max(1, chunk_windows // (L - k + 1))
+    if use_stream:
+        return stream_row_chunks(kmdir, opts, k, L, rows), rows
+
+    def slices():
+        for lo in range(0, batch.shape[0], rows):
+            yield batch[lo:lo + rows], lengths[lo:lo + rows], \
+                sarr[lo:lo + rows]
+
+    return slices(), rows
+
+
+def host_tensors(gen, mesh):
+    """numpy chunks -> CPU tensors, pinned when the mesh holds a GPU so
+    that the uploads can run asynchronously (on the prefetch thread)."""
+    pin = any(d.type == "cuda" for d in mesh)
+    for arrs in gen:
+        ts = tuple(torch.from_numpy(a) for a in arrs)
+        yield tuple(t.pin_memory() for t in ts) if pin else ts
+
+
+def _load_global_batch(kmdir, opts, ndev: int = 1):
     """All samples' reads as one 'N'-padded (B, L) uint8 batch with
-    (B,) lengths and sample ids; L rounds up to 128 and B to 8 (the JAX
+    (B,) lengths and sample ids; L rounds up to 128 and B to
+    lcm(ndev, 8), so the rows split evenly over ``ndev`` shards (the JAX
     package's shapes; reads shorter than k give no valid window)."""
     entries = list(kmdir.fof)
     nthreads = min(getattr(opts, "threads", 1) or 1, len(entries))
@@ -248,7 +296,8 @@ def _load_global_batch(kmdir, opts):
         raise ValueError("no sequences")
     L = max(b.shape[1] for b, _ in per_sample)
     L = math.ceil(L / 128) * 128
-    B = math.ceil(n_reads / 8) * 8
+    align = math.lcm(ndev, 8)
+    B = math.ceil(n_reads / align) * align
     batch = np.full((B, L), ord("N"), dtype=np.uint8)
     lengths = np.zeros(B, dtype=np.int32)
     sarr = np.zeros(B, dtype=np.int32)
@@ -291,46 +340,169 @@ def hash_window_bits(kmdir, cf: str) -> int | None:
     return HashWindow.load(kmdir.hash_win).window_size_bits
 
 
-def stage_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
-                      batch, lengths, sarr, device) -> None:
-    """Count and merge the loaded collection on ``device`` in one step and
-    write every partition's outputs."""
+def _mesh_common(kmdir, config, opts):
+    """(count format, hash window bits, count_max, per-sample hard-mins)
+    of the run (counterpart of ``_mesh_common``)."""
     # imported here: runtime.pipeline imports this module
-    from kmtricks_tpu_torch.runtime.pipeline import (
-        parse_mode, write_merge_outputs)
+    from kmtricks_tpu_torch.runtime.pipeline import parse_mode
 
     cf = parse_mode(opts.mode)[0]
+    return (cf, hash_window_bits(kmdir, cf),
+            (1 << (8 * config.count_bytes)) - 1,
+            kmdir.fof.abundance_mins(opts.hard_min))
+
+
+def stage_mesh_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
+                           batch, lengths, sarr, mesh) -> None:
+    """Count and merge the loaded collection over ``mesh`` in one step and
+    write every partition's outputs, each shard's partitions in
+    :func:`partition_to_device` order. ``opts.max_memory_mb`` sets each
+    shard's row budget."""
+    from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
+
+    cf, window_bits, count_max, hard_mins = _mesh_common(kmdir, config, opts)
     nsamp = len(kmdir.fof)
     key_words = 2 if cf == "hash" else device_key_words(config.kmer_size)
-    hard_mins = kmdir.fof.abundance_mins(opts.hard_min)
     # per-sample `! amin` fof overrides ride the fused step directly
     hard_min_vec = (np.asarray(hard_mins, dtype=np.uint32)
                     if len(set(hard_mins)) != 1 else None)
     args = from_jax_inputs(batch, lengths, sarr, repart.table, amin_vec,
-                           hard_min_vec, device)
-    step = build_single_chip_step(
-        k=config.kmer_size, m=config.minim_size, nsamp=nsamp,
+                           hard_min_vec, "cpu")
+    step = build_sharded_pipeline(
+        mesh, k=config.kmer_size, m=config.minim_size, nsamp=nsamp,
         nb_parts=config.nb_partitions, hard_min=hard_mins[0],
         rmin=opts.recurrence_min, save_if=opts.share_min,
-        count_max=(1 << (8 * config.count_bytes)) - 1,
-        hard_min_vec=args[5], mmer_canonical=config.mmer_scheme != "forward",
+        count_max=count_max, hard_min_vec=args[5],
+        mmer_canonical=config.mmer_scheme != "forward",
         max_rows=rows_budget(nsamp, opts.max_memory_mb, key_words), mode=cf,
-        window_bits=hash_window_bits(kmdir, cf),
+        window_bits=window_bits,
         static_parts=config.nb_partitions if opts.static_repart else None)
-    log.info("device step: %d reads x %d (windows %d) on %s",
+    log.info("mesh step: %d reads x %d (windows %d) over %d shard(s)",
              batch.shape[0], batch.shape[1],
-             batch.shape[0] * (batch.shape[1] - config.kmer_size + 1), device)
-    rows, pre, nrows, _maxc, _npres = step(*args[:5])
-    keys = fetch_row_keys(rows, cf)
-    pre = pre.cpu().numpy().view(np.uint32)
-    # rows are sorted by (partition, key): partition blocks are contiguous
-    bounds = np.searchsorted(rows[:, -1].cpu().numpy(),
-                             np.arange(config.nb_partitions + 1))
-    if int(bounds[-1]) != nrows:
-        raise RuntimeError(f"row partitions out of range: {int(bounds[-1])} "
-                           f"of {nrows} rows")
-    for p in range(config.nb_partitions):
+             batch.shape[0] * (batch.shape[1] - config.kmer_size + 1),
+             len(mesh))
+    part_dev = partition_to_device(config.nb_partitions, len(mesh))
+    for d, (rows, pre, nrows, _maxc, _npres) in enumerate(step(*args[:5])):
+        keys = fetch_row_keys(rows, cf)
+        pre = pre.cpu().numpy().view(np.uint32)
+        # rows are sorted by (partition, key): partition blocks are
+        # contiguous
+        bounds = np.searchsorted(rows[:, -1].cpu().numpy(),
+                                 np.arange(config.nb_partitions + 1))
+        if int(bounds[-1]) != nrows:
+            raise RuntimeError(f"row partitions out of range: "
+                               f"{int(bounds[-1])} of {nrows} rows")
+        for p in np.flatnonzero(part_dev == d):
+            sl = slice(int(bounds[p]), int(bounds[p + 1]))
+            res = hops.merge_dense(keys[sl], pre[sl], amin_vec,
+                                   opts.recurrence_min, opts.share_min)
+            write_merge_outputs(kmdir, config, opts, int(p), res, mesh[d])
+
+
+def stage_mesh_chunked(kmdir, config, opts, repart, amin_vec, *, mesh,
+                       chunk_windows: int, batch=None, lengths=None,
+                       sarr=None, use_stream: bool = False) -> None:
+    """Count the collection chunk by chunk over ``mesh`` and merge it on
+    the host (counterpart of ``stage_mesh_chunked``), for the sort layouts
+    no packed word takes.
+
+    Each chunk (about ``chunk_windows`` windows, decoded from the banks
+    with ``use_stream``, else sliced from the loaded batch) runs the
+    sharded step as a pure counter: hard-min 1, recurrence 1, no rescue,
+    no count cap. Its compacted rows and pre-merge counts give every
+    present (partition, key, sample) count. The host then sums the counts
+    of each (partition, key) across chunks in exact uint64 with one
+    grouping sort, builds the histograms (written under --hist), applies
+    the per-sample hard-mins (fof ``! amin``) and the count_max clamp,
+    resolves a float soft-min from the histogram files (``amin_vec``
+    None resolves the soft-min there), and merges and writes each
+    partition. ``merge_dense`` takes the summed rows directly: the JAX
+    package's ``merge_partition`` builds the same dense matrix from
+    per-sample tables and then calls it. The sums being complete before
+    any merge, the JAX package's ``streaming`` order (merge each partition
+    as its tables are built) writes the same files and has no
+    counterpart."""
+    from kmtricks_tpu_torch.runtime.pipeline import (
+        resolve_soft_min, write_merge_outputs)
+
+    cf, window_bits, count_max, hard_mins = _mesh_common(kmdir, config, opts)
+    nsamp, k = len(kmdir.fof), config.kmer_size
+    nb_parts = config.nb_partitions
+    gen, rows_per_chunk = chunk_source(kmdir, opts, k, chunk_windows, batch,
+                                       lengths, sarr, use_stream)
+    step = build_sharded_pipeline(
+        mesh, k=k, m=config.minim_size, nsamp=nsamp, nb_parts=nb_parts,
+        hard_min=1, rmin=1, save_if=0, count_max=0xFFFFFFFF,
+        mmer_canonical=config.mmer_scheme != "forward", mode=cf,
+        window_bits=window_bits,
+        static_parts=nb_parts if opts.static_repart else None)
+    table = torch.from_numpy(repart.table.astype(np.int32))
+    ones = torch.ones(nsamp, dtype=torch.int32)
+    keys_l, part_l, pre_l = [], [], []
+    n_chunks = 0
+    for cb, cl, cs in prefetched(host_tensors(gen, mesh), 2):
+        for rows, pre, _nrows, _maxc, _npres in step(cb, cl, cs, table,
+                                                     ones):
+            rk = fetch_row_keys(rows, cf)
+            keys_l.append(rk[:, None] if rk.ndim == 1 else rk)
+            part_l.append(rows[:, -1].cpu().numpy())
+            pre_l.append(pre.cpu().numpy().view(np.uint32))
+        n_chunks += 1
+    if not n_chunks:
+        raise ValueError("no sequences")
+    log.info("mesh chunked: %d chunk(s) of %d rows over %d shard(s)",
+             n_chunks, rows_per_chunk, len(mesh))
+    keys, part, pre = _sum_rows(keys_l, part_l, pre_l)
+    del keys_l, part_l, pre_l
+
+    want_hists = opts.hist or (amin_vec is None
+                               and _is_float_quantile(opts.soft_min))
+    if want_hists:
+        for s, entry in enumerate(kmdir.fof):
+            hist = KHist(s, k)
+            col = pre[:, s]
+            hist.inc_counts(col[col > 0])
+            F.write_hist_file(kmdir.get_hist_path(entry.id), hist)
+    if amin_vec is None:
+        amin_vec = resolve_soft_min(opts.soft_min, kmdir, nsamp)
+    # per-sample hard-min on the summed counts, then the count_max clamp;
+    # rows no sample keeps are no rows
+    hmv = np.asarray(hard_mins, dtype=np.uint64)[None, :]
+    pre = np.where(pre >= hmv, np.minimum(pre, np.uint64(count_max)),
+                   np.uint64(0))
+    keep = pre.any(axis=1)
+    keys, part, pre = keys[keep], part[keep], pre[keep]
+    if cf == "hash":
+        keys = keys[:, 0]
+    bounds = np.searchsorted(part, np.arange(nb_parts + 1))
+    owner = partition_to_device(nb_parts, len(mesh))
+    for p in range(nb_parts):
         sl = slice(int(bounds[p]), int(bounds[p + 1]))
         res = hops.merge_dense(keys[sl], pre[sl], amin_vec,
                                opts.recurrence_min, opts.share_min)
-        write_merge_outputs(kmdir, config, opts, p, res, device)
+        write_merge_outputs(kmdir, config, opts, p, res, mesh[owner[p]])
+
+
+def _sum_rows(keys_l, part_l, pre_l):
+    """Per-chunk compacted rows -> one row per (partition, key), in
+    (partition, unsigned key) order, with its counts summed over the
+    chunks: (keys (n, slots) u64, part (n,) int64, pre (n, nsamp) u64)."""
+    keys = np.concatenate(keys_l)
+    part = np.concatenate(part_l)
+    pre = np.concatenate(pre_l)
+    if len(pre_l) > 1:
+        # lexsort's last key leads: partition, then the most significant
+        # key word; unsigned u64 compares
+        order = np.lexsort([keys[:, j] for j in range(keys.shape[1])]
+                           + [part])
+        keys, part, pre = keys[order], part[order], pre[order]
+    n = len(part)
+    head = np.ones(n, dtype=bool)
+    if n:
+        head[1:] = (part[1:] != part[:-1]) | (
+            keys[1:] != keys[:-1]).any(axis=1)
+    starts = np.flatnonzero(head)
+    if len(starts) == n:
+        return keys, part, pre.astype(np.uint64)
+    return (keys[starts], part[starts],
+            np.add.reduceat(pre.astype(np.uint64), starts, axis=0))

@@ -2,17 +2,18 @@
 
 Counterpart of ``kmtricks_tpu/runtime/pipeline.py`` and, for the fused
 branch, of ``kmtricks_tpu/runtime/device_pipeline.py::run_mesh_pipeline``
-on one device. :func:`run_pipeline` routes as the JAX package's
-``_resolve_backend`` does (:func:`_resolve_backend`):
+over a mesh of devices (every visible GPU by default).
+:func:`run_pipeline` routes as the JAX package's ``_resolve_backend``
+does (:func:`_resolve_backend`):
 
 * ``mesh`` (what ``auto`` takes for ``--until merge|all`` without
   ``--minimizer-type 1``, ``--restrict-to[-list]`` or ``--kff-output``):
   a collection that fits one device step takes the fused step
   (:mod:`kmtricks_tpu_torch.runtime.device_pipeline`); a larger one, or a
   run that wants histograms or a float soft-min, takes the streaming
-  engine (:mod:`kmtricks_tpu_torch.runtime.stream_engine`). The sort
-  layouts that only the JAX package's ``stage_mesh_chunked`` takes raise
-  NotImplementedError (:func:`check_slice`);
+  engine (:mod:`kmtricks_tpu_torch.runtime.stream_engine`), or, for the
+  sort layouts no packed word takes, the host-aggregated
+  ``stage_mesh_chunked``;
 * ``device`` (what ``auto`` takes otherwise): the per-stage path, one
   sample's count (``ops/pipeline.py::count_sample_device``, kernels K1/K2)
   and one partition's merge (``ops/merge.py::merge_partition_device``) at
@@ -54,13 +55,13 @@ from kmtricks_tpu_torch.core.repartition import Repartition
 from kmtricks_tpu_torch.host import ops as hops
 from kmtricks_tpu_torch.io import formats as F
 from kmtricks_tpu_torch.io import sequences as seqio
-from kmtricks_tpu_torch.io.fof import Fof
 from kmtricks_tpu_torch.ops.count_merge import stream_layout
 from kmtricks_tpu_torch.runtime.config import (
     Config, configure, save_gatb_config)
+from kmtricks_tpu_torch.parallel.pipeline import make_mesh
 from kmtricks_tpu_torch.runtime.device_pipeline import (
     _is_float_quantile, _load_global_batch, _needs_host_aggregation,
-    stage_count_merge)
+    hash_window_bits, stage_mesh_chunked, stage_mesh_count_merge)
 from kmtricks_tpu_torch.runtime.kmdir import KmDir
 from kmtricks_tpu_torch.runtime.stream_engine import stage_mesh_stream
 
@@ -860,47 +861,19 @@ def _resolve_backend(opts: PipelineOptions) -> str:
     return "device"
 
 
-def _packs(opts: PipelineOptions) -> bool:
-    """The sort layout packs (k2, k3 or kw; h1/h2 in hash mode), where
-    the JAX package's ``stream_layout`` gives a layout, for an explicit
-    --nb-partitions; an automatic count is checked once the config has set
-    it."""
-    if opts.nb_partitions <= 0:
-        return True
-    nsamp, nparts = len(Fof.parse(opts.fof)), opts.nb_partitions
-    window = HashWindow(opts.bloom_size, nparts,
-                        opts.minim_size).window_size_bits
-    try:
-        stream_layout(opts.kmer_size, nparts, nsamp,
-                      parse_mode(opts.mode)[0], window)
-    except NotImplementedError:
-        return False
-    return True
-
-
-def check_slice(opts: PipelineOptions) -> None:
-    """Raise NotImplementedError for the fused branch's sort layouts that
-    only the JAX package's ``stage_mesh_chunked`` takes (ROADMAP item G);
-    the per-stage backends take every layout."""
-    parse_mode(opts.mode)
-    if not _packs(opts):
-        raise NotImplementedError(
-            f"kmtricks_tpu_torch does not port {opts.nb_partitions} "
-            f"partitions at k = {opts.kmer_size} with --mode {opts.mode} on "
-            "the fused path (no packed sort layout; the JAX package's "
-            "stage_mesh_chunked is not ported) yet; run kmtricks_tpu, or "
-            "--backend device")
-
-
 def run_pipeline(opts: PipelineOptions, device="cuda", *,
-                 chunk_windows: int | None = None,
+                 devices=None, chunk_windows: int | None = None,
                  table_cap: int | None = None):
     """Run ``pipeline`` on ``device`` (a CUDA device; "cpu" runs the
     kernels' plain versions), by the backend :func:`_resolve_backend`
     picks: the fused branch (:func:`_run_fused`), the per-stage path
     (:func:`_run_stages`), or with ``--backend host`` the numpy stages
-    (which need no device). ``chunk_windows`` and ``table_cap`` set the
-    streaming engine's chunk size and table budget. Returns the KmDir."""
+    (which need no device). The fused branch runs over a mesh
+    (``parallel/pipeline.py::make_mesh``): ``devices``, one per shard (a
+    device may repeat), else every visible CUDA device for "cuda", else
+    ``device`` alone. ``chunk_windows`` and ``table_cap`` set the
+    streaming engine's chunk size and (per shard) table budget. Returns
+    the KmDir."""
     if _is_float_quantile(opts.soft_min) and not opts.hist:
         # the quantile thresholds are read from the histogram files
         log.info("float --soft-min: enabling histograms")
@@ -913,9 +886,9 @@ def run_pipeline(opts: PipelineOptions, device="cuda", *,
             raise ValueError("--backend mesh runs the fused count+merge "
                              "step; --until repart/superk/count need "
                              "--backend host/device")
-        check_slice(opts)
-        return _run_fused(opts, require_device(device), chunk_windows,
-                          table_cap)
+        parse_mode(opts.mode)
+        return _run_fused(opts, _fused_mesh(require_device(device), devices),
+                          chunk_windows, table_cap)
     return _run_stages(opts, require_device(device))
 
 
@@ -1009,23 +982,44 @@ def _selected_partitions(opts: PipelineOptions,
     return None
 
 
-def _run_fused(opts: PipelineOptions, device, chunk_windows, table_cap):
-    """The fused branch on ``device`` (counterpart of
-    ``run_mesh_pipeline``): the one-step path, or the streaming engine;
-    ``bft`` outputs end with the per-sample filters (:func:`stage_format`)
-    on both branches."""
+def _fused_mesh(device, devices) -> tuple:
+    """The fused branch's mesh: ``devices`` (each checked), or every
+    visible CUDA device for an unindexed "cuda", or ``device`` alone."""
+    if devices is not None:
+        return make_mesh([require_device(d) for d in devices])
+    if device == torch.device("cuda"):
+        return make_mesh()
+    return (device,)
+
+
+def _run_fused(opts: PipelineOptions, mesh, chunk_windows, table_cap):
+    """The fused branch over ``mesh`` (counterpart of
+    ``run_mesh_pipeline``): the one-step path, the streaming engine, or,
+    for sort layouts no packed word takes (``stream_layout`` None), the
+    host-aggregated chunked path where the engine would run; ``bft``
+    outputs end with the per-sample filters (:func:`stage_format`) on
+    every branch."""
     t0 = time.time()
     kmdir, config = stage_config(opts)
-    repart = stage_repart(kmdir, config, opts, device)
+    repart = stage_repart(kmdir, config, opts, mesh[0])
     if getattr(repart, "freq", None) is not None:
         raise ValueError("--backend mesh does not support frequency-ordered "
                          "minimizers yet")
     budget_windows = int(opts.max_memory_mb * 1e6 / BYTES_PER_WINDOW)
+    cf = parse_mode(opts.mode)[0]
+    streamable = stream_layout(config.kmer_size, config.nb_partitions,
+                               len(kmdir.fof), cf,
+                               hash_window_bits(kmdir, cf)) is not None
 
     def engine(**kw):
-        stage_mesh_stream(kmdir, config, opts, repart, None, device=device,
-                          chunk_windows=chunk_windows or budget_windows,
-                          table_cap=table_cap, **kw)
+        if streamable:
+            stage_mesh_stream(kmdir, config, opts, repart, None, mesh=mesh,
+                              chunk_windows=chunk_windows or budget_windows,
+                              table_cap=table_cap, **kw)
+        else:
+            stage_mesh_chunked(kmdir, config, opts, repart, None, mesh=mesh,
+                               chunk_windows=chunk_windows or budget_windows,
+                               **kw)
 
     # an upper bound on the bases (gz sized x4): beyond the one-step
     # budget the collection streams from the banks and is never loaded
@@ -1034,15 +1028,15 @@ def _run_fused(opts: PipelineOptions, device, chunk_windows, table_cap):
     if est_bytes > budget_windows:
         engine(use_stream=True)
     else:
-        batch, lengths, sarr = _load_global_batch(kmdir, opts)
+        batch, lengths, sarr = _load_global_batch(kmdir, opts, len(mesh))
         n_windows = batch.shape[0] * (batch.shape[1] - config.kmer_size + 1)
         if n_windows > budget_windows or _needs_host_aggregation(opts):
             engine(batch=batch, lengths=lengths, sarr=sarr)
         else:
             amin_vec = resolve_soft_min(opts.soft_min, kmdir,
                                         len(kmdir.fof))
-            stage_count_merge(kmdir, config, opts, repart, amin_vec, batch,
-                              lengths, sarr, device)
+            stage_mesh_count_merge(kmdir, config, opts, repart, amin_vec,
+                                   batch, lengths, sarr, mesh)
         del batch, lengths, sarr
     if parse_mode(opts.mode)[1] == "bft":
         stage_format(kmdir, config, opts)

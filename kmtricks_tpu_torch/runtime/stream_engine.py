@@ -1,20 +1,25 @@
-"""Streaming matrix engine: banks -> device count table -> files.
+"""Streaming matrix engine: banks -> device count tables -> files.
 
 Counterpart of the single-process body of ``kmtricks_tpu/runtime/
-stream_engine.py::stage_mesh_stream`` (k-mer and hash mode, k <= 128,
-one GPU; wide k-mers in "kw" layouts of up to five sort words).
+stream_engine.py::stage_mesh_stream`` (k-mer and hash mode, k <= 128;
+wide k-mers in "kw" layouts of up to five sort words), over a mesh of
+devices (``parallel/pipeline.py::make_mesh``; one shard on one GPU).
 Read chunks stream from the banks (or are sliced from a loaded batch) on
-a background thread; each chunk reduces on the device to one sorted run
-of unique (packed key, count) pairs; runs fold into one table whenever
-their entries pass the table budget; then phase A merges the runs
-(kernel K4) and collapses duplicates, phase B compacts the table to
-dense rows, and the host tail applies the per-sample hard-min, writes
-histograms, resolves a float soft-min and merges and writes each
-partition with the port's copy of the JAX package's host code, so the
-run directory is byte-identical. ``pa:bin`` outputs (no plugin, no
-histograms, the soft-min resolved) take the pa-bits tail instead: the
-merge runs on the device (``merge_finalize_bits``) and only packed bits,
-keep flags and statistics cross to the host.
+a background thread; each chunk's rows split over the shards, and each
+shard routes its packed windows to the owners of their partitions, so
+that the chunk reduces to one sorted run of unique (packed key, count)
+pairs per shard (each receiver merges its routed runs with K3/K4 first).
+Each shard keeps its own table: its runs fold into one whenever their
+entries pass the table budget (per shard); then phase A merges a shard's
+runs (kernel K4) and collapses duplicates, phase B compacts its table to
+dense rows, and the host tail fetches the shards in owner order, applies
+the per-sample hard-min, writes histograms, resolves a float soft-min and
+merges and writes each partition with the port's copy of the JAX
+package's host code, so the run directory is byte-identical.
+``pa:bin`` outputs (no plugin, no histograms, the soft-min resolved) take
+the pa-bits tail instead: the merge runs on each shard's device
+(``merge_finalize_bits``) and only packed bits, keep flags and
+statistics cross to the host.
 
 Feature handling, as in the JAX engine:
 - per-sample hard-min (fof ``! amin``): the device applies the minimum
@@ -42,19 +47,16 @@ import torch
 from kmtricks_tpu_torch.core.histogram import KHist
 from kmtricks_tpu_torch.host import ops as hops
 from kmtricks_tpu_torch.io import formats as F
-from kmtricks_tpu_torch.io import sequences as seqio
 from kmtricks_tpu_torch.ops.count_merge import _layout_words, stream_layout
 from kmtricks_tpu_torch.ops.table import merge_pair_streams
 from kmtricks_tpu_torch.parallel.pipeline import (
-    build_chunk_pairs_step, merge_finalize_bits, table_compact,
-    table_sort_collapse)
+    _each_shard, build_chunk_pairs_step, merge_finalize_bits,
+    table_compact, table_sort_collapse)
 from kmtricks_tpu_torch.runtime.device_pipeline import (
-    _is_float_quantile, _pow2ceil, fetch_row_keys, hash_window_bits,
-    prefetched, stream_row_chunks)
+    _is_float_quantile, _pow2ceil, chunk_source, fetch_row_keys,
+    hash_window_bits, host_tensors, prefetched)
 
 log = logging.getLogger("kmtricks_tpu")
-
-MAX_READ_LEN = 4096     # longer reads split into overlapping segments
 
 # counts and phase walls of the most recent stage_mesh_stream run
 last_run: dict = {}
@@ -69,54 +71,26 @@ def table_budget(max_memory_mb: int, layout: str, nsamp: int) -> int:
         max_memory_mb * 1e6 / 3 / (4 * (nw + 1))) + 1) // 2)
 
 
-def _chunk_source(kmdir, opts, k, chunk_windows, batch, lengths, sarr,
-                  use_stream):
-    """Host chunks of about ``chunk_windows`` windows as numpy (rows, L)
-    uint8 batches with lengths and sample ids, and the rows per chunk:
-    decoded from the banks (rows of the longest read, at most
-    MAX_READ_LEN), or slices of the loaded batch."""
-    if use_stream:
-        longest = max(seqio.estimate(e.paths).max_size for e in kmdir.fof)
-        L = max(k, min(longest, MAX_READ_LEN))
-    else:
-        L = batch.shape[1]
-    rows = max(1, chunk_windows // (L - k + 1))
-    if use_stream:
-        return stream_row_chunks(kmdir, opts, k, L, rows), rows
-
-    def slices():
-        for lo in range(0, batch.shape[0], rows):
-            yield batch[lo:lo + rows], lengths[lo:lo + rows], \
-                sarr[lo:lo + rows]
-
-    return slices(), rows
+def _sync(mesh) -> None:
+    for dev in set(mesh):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
-def _host_tensors(gen, device):
-    """numpy chunks -> CPU tensors, pinned when the device is a GPU so
-    that the upload can run asynchronously (on the prefetch thread)."""
-    for arrs in gen:
-        ts = tuple(torch.from_numpy(a) for a in arrs)
-        if device.type == "cuda":
-            ts = tuple(t.pin_memory() for t in ts)
-        yield ts
+def _cat(arrays):
+    return arrays[0] if len(arrays) == 1 else np.concatenate(arrays)
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, device,
+def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
                       chunk_windows: int, table_cap: int | None = None,
                       batch=None, lengths=None, sarr=None,
                       use_stream: bool = False) -> None:
-    """Count and merge the collection through the streaming engine on
-    ``device`` and write every partition's outputs.
+    """Count and merge the collection through the streaming engine over
+    ``mesh`` and write every partition's outputs.
 
     ``chunk_windows``: windows per chunk (the one-step budget by
-    default); ``table_cap``: the table budget in entries (default
-    :func:`table_budget`), past which the runs fold into one table, and
+    default); ``table_cap``: each shard's table budget in entries (default
+    :func:`table_budget`), past which its runs fold into one table, and
     which one folded table may not exceed. ``use_stream`` decodes chunks
     from the banks; otherwise chunks are slices of the loaded ``batch``
     (with its ``lengths`` and sample ids ``sarr``). ``amin_vec`` None
@@ -143,90 +117,116 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, device,
     if table_cap is None:
         table_cap = table_budget(opts.max_memory_mb, layout, nsamp)
 
-    gen, rows_per_chunk = _chunk_source(kmdir, opts, k, chunk_windows, batch,
-                                        lengths, sarr, use_stream)
-    chunks = prefetched(_host_tensors(gen, device), 2)
+    gen, rows_per_chunk = chunk_source(kmdir, opts, k, chunk_windows, batch,
+                                       lengths, sarr, use_stream)
+    chunks = prefetched(host_tensors(gen, mesh), 2)
     step = build_chunk_pairs_step(
-        k=k, m=config.minim_size, nsamp=nsamp, nb_parts=nb_parts,
+        mesh, k=k, m=config.minim_size, nsamp=nsamp, nb_parts=nb_parts,
         mmer_canonical=config.mmer_scheme != "forward", mode=cf,
         window_bits=window_bits,
         static_parts=nb_parts if opts.static_repart else None)
-    table = torch.from_numpy(repart.table.astype(np.int32)).to(device)
+    table = torch.from_numpy(repart.table.astype(np.int32)).to(mesh[0])
 
-    runs = []
+    runs = [[] for _ in mesh]       # each shard's table: its pair runs
+
+    def fold(d) -> int:
+        """Fold shard ``d``'s runs into one table once they pass the
+        budget; 1 if it folded."""
+        if sum(int(r[1].shape[0]) for r in runs[d]) <= table_cap:
+            return 0
+        ws, cnt = merge_pair_streams(runs[d])
+        if cnt.shape[0] > table_cap:
+            raise ValueError(
+                f"device table overflow ({cnt.shape[0]} entries > "
+                f"{table_cap} budget at --max-memory "
+                f"{opts.max_memory_mb} MB)")
+        runs[d] = [(ws, cnt)]
+        return 1
+
     n_chunks = n_folds = 0
     for cb, cl, cs in chunks:
-        runs.append(step(cb.to(device, non_blocking=True),
-                         cl.to(device, non_blocking=True),
-                         cs.to(device, non_blocking=True), table))
+        for d, run in enumerate(step(cb, cl, cs, table)):
+            runs[d].append(run)
         n_chunks += 1
-        if sum(int(r[1].shape[0]) for r in runs) > table_cap:
-            ws, cnt = merge_pair_streams(runs)
-            n_folds += 1
-            if cnt.shape[0] > table_cap:
-                raise ValueError(
-                    f"device table overflow ({cnt.shape[0]} entries > "
-                    f"{table_cap} budget at --max-memory "
-                    f"{opts.max_memory_mb} MB)")
-            runs = [(ws, cnt)]
-    if not runs:
+        n_folds += sum(_each_shard(mesh, fold))
+    if not n_chunks:
         raise ValueError("no sequences")
-    n_runs = len(runs)
-    n_entries = sum(int(r[1].shape[0]) for r in runs)
-    _sync(device)
+    n_runs = sum(len(r) for r in runs)
+    n_entries = sum(int(r[1].shape[0]) for rs in runs for r in rs)
+    _sync(mesh)
     t_stream = time.perf_counter()
-    log.info("streamed %d chunks (%d rows each) -> %d pair runs, %d "
-             "entries, %d folds", n_chunks, rows_per_chunk, n_runs,
-             n_entries, n_folds)
+    log.info("streamed %d chunks (%d rows each) over %d shard(s) -> %d "
+             "pair runs, %d entries, %d folds", n_chunks, rows_per_chunk,
+             len(mesh), n_runs, n_entries, n_folds)
 
-    ws, cnt = table_sort_collapse(runs)
+    tables = _each_shard(mesh, lambda d: table_sort_collapse(runs[d]))
     del runs
-    _sync(device)
+    _sync(mesh)
     t_a = time.perf_counter()
-    rows, pre, part_rows, _maxc, _npres = table_compact(
-        ws, cnt, layout=layout, nsamp=nsamp, hard_min=dev_hard_min,
-        nb_parts=nb_parts, window_bits=window_bits)
-    table_entries = int(cnt.shape[0])
-    del ws, cnt
-    _sync(device)
+    table_entries = sum(int(cnt.shape[0]) for _ws, cnt in tables)
+
+    def compact(d):
+        ws, cnt = tables[d]
+        rows, pre, part_rows, _maxc, _npres = table_compact(
+            ws, cnt, layout=layout, nsamp=nsamp, hard_min=dev_hard_min,
+            nb_parts=nb_parts, window_bits=window_bits)
+        return rows, pre, part_rows
+
+    shards = _each_shard(mesh, compact)
+    del tables
+    _sync(mesh)
     t_b = time.perf_counter()
     pa_bits = (mode, out) == ("pa", "bin") and not opts.plugin \
         and not want_hists
     if pa_bits:
-        _fetch_merge_write_pa_bits(kmdir, config, opts, cf, rows, pre,
-                                   part_rows, amin_vec, hard_mins, count_max)
+        _fetch_merge_write_pa_bits(kmdir, config, opts, cf, mesh, shards,
+                                   amin_vec, hard_mins, count_max)
     else:
-        _fetch_merge_write(kmdir, config, opts, cf, rows, pre, part_rows,
-                           amin_vec, hard_mins, count_max, want_hists)
+        _fetch_merge_write(kmdir, config, opts, cf, mesh, shards, amin_vec,
+                           hard_mins, count_max, want_hists)
     t_end = time.perf_counter()
     last_run.clear()
     last_run.update(
-        chunks=n_chunks, rows_per_chunk=rows_per_chunk, runs=n_runs,
-        folds=n_folds, run_entries=n_entries, table_entries=table_entries,
-        rows=int(rows.shape[0]), tail="pa_bits" if pa_bits else "dense",
+        shards=len(mesh), chunks=n_chunks, rows_per_chunk=rows_per_chunk,
+        runs=n_runs, folds=n_folds, run_entries=n_entries,
+        table_entries=table_entries,
+        rows=sum(int(r.shape[0]) for r, _p, _n in shards),
+        tail="pa_bits" if pa_bits else "dense",
         walls_s={"chunk_loop": t_stream - t_start, "phase_a": t_a - t_stream,
                  "phase_b": t_b - t_a, "tail": t_end - t_b})
 
 
-def _fetch_merge_write(kmdir, config, opts, cf, rows, pre, part_rows,
-                       amin_vec, hard_mins, count_max, want_hists) -> None:
+def _fetch_shards(cf, shards, nb_parts):
+    """Each shard's row keys and partition sizes on the host, joined in
+    shard order, which is partition order (each shard owns a contiguous
+    block of partitions, :func:`~kmtricks_tpu_torch.parallel.pipeline.
+    partition_to_device`): (keys, partition row bounds (nb_parts + 1,))."""
+    keys = _cat([fetch_row_keys(rows, cf) for rows, _pre, _p in shards])
+    bounds = np.zeros(nb_parts + 1, np.int64)
+    np.cumsum(sum(p.cpu().numpy() for _r, _pre, p in shards),
+              out=bounds[1:])
+    if int(bounds[-1]) != keys.shape[0]:
+        raise RuntimeError(f"partition sizes ({int(bounds[-1])} rows) "
+                           f"disagree with the table ({keys.shape[0]})")
+    return keys, bounds
+
+
+def _fetch_merge_write(kmdir, config, opts, cf, mesh, shards, amin_vec,
+                       hard_mins, count_max, want_hists) -> None:
     """The engine's host tail (counterpart of ``_fetch_merge_write`` and
-    ``_fetch_merge_write_pipelined``): one device-to-host copy of the row
-    keys, counts and partition sizes; per-sample hard-min on the raw
-    counts, then count_max saturation; histograms (written under
-    --hist); a float soft-min resolved from them; then each partition's
-    merge and write, fanned over the -t thread pool."""
+    ``_fetch_merge_write_pipelined``): one device-to-host copy of each
+    shard's row keys, counts and partition sizes, in owner order;
+    per-sample hard-min on the raw counts, then count_max saturation;
+    histograms (written under --hist); a float soft-min resolved from
+    them; then each partition's merge and write, fanned over the -t
+    thread pool."""
+    from kmtricks_tpu_torch.parallel.pipeline import partition_to_device
     from kmtricks_tpu_torch.runtime.pipeline import (
         resolve_soft_min, write_merge_outputs)
 
     nsamp = len(kmdir.fof)
-    keys = fetch_row_keys(rows, cf)
-    pre = pre.cpu().numpy().view(np.uint32)
-    bounds = np.zeros(config.nb_partitions + 1, np.int64)
-    np.cumsum(part_rows.cpu().numpy(), out=bounds[1:])
-    if int(bounds[-1]) != keys.shape[0]:
-        raise RuntimeError(f"partition sizes ({int(bounds[-1])} rows) "
-                           f"disagree with the table ({keys.shape[0]})")
+    keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
+    pre = _cat([p.cpu().numpy().view(np.uint32) for _r, p, _n in shards])
     if want_hists:
         hists = [KHist(s, config.kmer_size) for s in range(nsamp)]
         for s in range(nsamp):
@@ -241,12 +241,13 @@ def _fetch_merge_write(kmdir, config, opts, cf, rows, pre, part_rows,
     # (count_processor.hpp:61-72 order); a row may end up all zero
     pre_m = np.where(pre >= hard_mins[None, :], np.minimum(pre, count_max),
                      0)
+    owner = partition_to_device(config.nb_partitions, len(mesh))
 
     def merge_write(p):
         sl = slice(int(bounds[p]), int(bounds[p + 1]))
         res = hops.merge_dense(keys[sl], pre_m[sl], amin_vec,
                                opts.recurrence_min, opts.share_min)
-        write_merge_outputs(kmdir, config, opts, p, res, rows.device)
+        write_merge_outputs(kmdir, config, opts, p, res, mesh[owner[p]])
 
     nthreads = max(1, getattr(opts, "threads", 1) or 1)
     with ThreadPoolExecutor(max_workers=nthreads) as ex:
@@ -255,34 +256,36 @@ def _fetch_merge_write(kmdir, config, opts, cf, rows, pre, part_rows,
             f.result()
 
 
-def _fetch_merge_write_pa_bits(kmdir, config, opts, cf, rows, pre,
-                               part_rows, amin_vec, hard_mins,
-                               count_max) -> None:
+def _fetch_merge_write_pa_bits(kmdir, config, opts, cf, mesh, shards,
+                               amin_vec, hard_mins, count_max) -> None:
     """The presence/absence tail (counterpart of the single-process
-    ``_fetch_merge_write_pa_bits``): the merge runs on the device
+    ``_fetch_merge_write_pa_bits``): the merge runs on each shard's device
     (:func:`~kmtricks_tpu_torch.parallel.pipeline.merge_finalize_bits`),
     and only the row keys, packed pa bits, keep flags and per-partition
-    statistics are copied to the host, which writes each partition's pa
-    matrix and merge_info."""
+    statistics are copied to the host, shard by shard in owner order; the
+    host writes each partition's pa matrix and merge_info."""
     nsamp = len(kmdir.fof)
-    dev = pre.device
-    bounds = torch.zeros(config.nb_partitions + 1, dtype=torch.int64,
-                         device=dev)
-    torch.cumsum(part_rows, 0, out=bounds[1:])
-    # the soft-min is compared with saturated counts as the host merge
-    # does (the JAX tail clamps it to count_max first)
-    packed, keep, stats = merge_finalize_bits(
-        pre, torch.from_numpy(amin_vec.astype(np.int64)).to(dev),
-        torch.from_numpy(hard_mins.astype(np.int64)).to(dev), bounds,
-        rmin=opts.recurrence_min, save_if=opts.share_min,
-        count_max=count_max)
-    keys = fetch_row_keys(rows, cf)
-    packed, keep = packed.cpu().numpy(), keep.cpu().numpy()
-    stats = stats.cpu().numpy().astype(np.uint64)
-    bounds = bounds.cpu().numpy()
-    if int(bounds[-1]) != keys.shape[0]:
-        raise RuntimeError(f"partition sizes ({int(bounds[-1])} rows) "
-                           f"disagree with the table ({keys.shape[0]})")
+    keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
+
+    def finalize(d):
+        _rows, pre, part_rows = shards[d]
+        dev = pre.device
+        b = torch.zeros(config.nb_partitions + 1, dtype=torch.int64,
+                        device=dev)
+        torch.cumsum(part_rows, 0, out=b[1:])
+        # the soft-min is compared with saturated counts as the host
+        # merge does (the JAX tail clamps it to count_max first)
+        packed, keep, stats = merge_finalize_bits(
+            pre, torch.from_numpy(amin_vec.astype(np.int64)).to(dev),
+            torch.from_numpy(hard_mins.astype(np.int64)).to(dev), b,
+            rmin=opts.recurrence_min, save_if=opts.share_min,
+            count_max=count_max)
+        return packed.cpu().numpy(), keep.cpu().numpy(), stats.cpu().numpy()
+
+    fin = _each_shard(mesh, finalize)
+    packed, keep = _cat([f[0] for f in fin]), _cat([f[1] for f in fin])
+    # a shard's statistics are 0 outside its partitions
+    stats = sum(f[2] for f in fin).astype(np.uint64)
     for p in range(config.nb_partitions):
         sl = slice(int(bounds[p]), int(bounds[p + 1]))
         _pa_write_partition(kmdir, config, opts, cf, p, keys[sl],

@@ -87,15 +87,15 @@ def test_unported_layout_raises():
     """40 samples x 17 partition bits at k = 31: the JAX package's "kw"
     layout, which the port now takes (2 int64 sort words), with the same
     count_merge_keys outputs; beyond the kw bound (32 partition bits) both
-    packages refuse to pack."""
+    packages refuse to pack, and the fused path's stream_layout is None
+    (the chunked path takes it)."""
     assert jcm.packed_layout(40, 2, False, 62, 17) == "kw.17.62.2"
     assert tcm.packed_layout(40, 62, 17) == "kw.17.62.2"
     assert tcm._kw_params("kw.17.62.2", 40)[4] == 2
     check_wide(62, 2, 1 << 17, 40)
     assert jcm.packed_layout(40, 2, False, 62, 32) is None
     assert tcm.packed_layout(40, 62, 32) is None
-    with pytest.raises(NotImplementedError, match="stage_mesh_chunked"):
-        tcm.stream_layout(31, 1 << 32, 40)
+    assert tcm.stream_layout(31, 1 << 32, 40) is None
 
 
 def make_wide_occurrences(rng, n, nb_parts, key_bits, nw, nsamp, pool=300):
@@ -162,7 +162,7 @@ def test_kw_count_merge_matches_jax(key_bits, nw, nb_parts, nsamp):
 
 
 def test_layout_routing_matches_jax():
-    """stream_layout gives the JAX package's layout, or refuses where the
+    """stream_layout gives the JAX package's layout, or None where the
     JAX package returns None (its stage_mesh_chunked path), over k,
     partition counts, sample counts and hash windows; the table budget's
     word count is the JAX package's."""
@@ -176,8 +176,8 @@ def test_layout_routing_matches_jax():
                         continue
                     exp = jpipe.stream_layout(k, 8, nparts, nsamp, mode, wb)
                     if exp is None:
-                        with pytest.raises(NotImplementedError):
-                            tcm.stream_layout(k, nparts, nsamp, mode, wb)
+                        assert tcm.stream_layout(k, nparts, nsamp, mode,
+                                                 wb) is None
                         seen.add("none")
                         continue
                     got = tcm.stream_layout(k, nparts, nsamp, mode, wb)
@@ -221,13 +221,12 @@ def test_hash_count_merge_matches_jax(case):
     kb = tcm.hash_key_bits(w, nparts)
     layout = jcm.packed_layout(nsamp, 2, True, kb)
     if kb + (nsamp - 1).bit_length() > 63:
-        # no packed layout: the fused paths refuse it, count_merge_keys
-        # takes the JAX package's generic sort
+        # no packed layout: the fused path takes the chunked path,
+        # count_merge_keys the JAX package's generic sort
         assert layout is None
         assert tcm.packed_layout(nsamp, kb, None,
                                  part_follows_keys=True) is None
-        with pytest.raises(NotImplementedError, match="stage_mesh_chunked"):
-            tcm.stream_layout(31, nparts, nsamp, "hash", w)
+        assert tcm.stream_layout(31, nparts, nsamp, "hash", w) is None
     else:
         assert tcm.packed_layout(nsamp, kb, None, part_follows_keys=True) \
             == layout

@@ -1,6 +1,6 @@
-"""The port's slices as a whole: the fused single-device step (k-mer and
-hash keys, k <= 32 and wide k) against the JAX package's
-build_single_chip_step, and ``run_pipeline`` on the CPU against
+"""The port's slices as a whole: the fused step on one device (the
+sharded step over a mesh of one CPU shard; k-mer and hash keys, k <= 32
+and wide k) against the JAX package's build_single_chip_step, and ``run_pipeline`` on the CPU against
 ``kmtricks_tpu --backend host``, byte for byte, for every count format,
 mode and output, wide k (the kw sort layouts) and --static-repart."""
 
@@ -19,10 +19,17 @@ from kmtricks_tpu.runtime.pipeline import PipelineOptions as JaxOptions
 from kmtricks_tpu.runtime.pipeline import run_pipeline as jax_run_pipeline
 from kmtricks_tpu_torch import cli
 from kmtricks_tpu_torch.convert import from_jax_inputs, keys_from_msb_words
-from kmtricks_tpu_torch.parallel.pipeline import build_single_chip_step
+from kmtricks_tpu_torch.parallel.pipeline import build_sharded_pipeline
 from kmtricks_tpu_torch.runtime.pipeline import PipelineOptions, run_pipeline
 
 torch.set_num_threads(2)
+
+
+def build_single_chip_step(**kw):
+    """The port's one-device step: the sharded step over a mesh of one
+    CPU shard, its only output."""
+    step = build_sharded_pipeline((torch.device("cpu"),), **kw)
+    return lambda *args: step(*args)[0]
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data_ref_exec"
@@ -303,60 +310,104 @@ UNPACKED = [
 ]
 
 
+def stub_unwritable(monkeypatch):
+    """Stubs for runs whose files cannot be written (2^28 and more
+    partition directories, or 2^58-bit Bloom filter windows): the
+    partition directories, the GATB config twin (its u32 field cannot
+    hold 2^32 partitions, in either package), the repartition, the fused
+    branch's stages (recorded) and the filters. Returns the record."""
+    from types import SimpleNamespace
+
+    from kmtricks_tpu_torch.runtime import pipeline as P
+    from kmtricks_tpu_torch.runtime.kmdir import KmDir
+
+    seen = []
+
+    def rec(name):
+        return lambda *a, **k: seen.append((name, k.get("use_stream",
+                                                        False)))
+
+    monkeypatch.setattr(KmDir, "init_parts", lambda self, n: None)
+    monkeypatch.setattr(P, "save_gatb_config", lambda config, root: None)
+    monkeypatch.setattr(P, "stage_repart", lambda kmdir, config, opts,
+                        device=None: SimpleNamespace(freq=None))
+    for name in ("stage_mesh_chunked", "stage_mesh_stream",
+                 "stage_mesh_count_merge", "stage_format"):
+        monkeypatch.setattr(P, name, rec(name))
+    return seen
+
+
 @pytest.mark.parametrize("argv", [
     ["pipeline", "--mode", "hash:bf:bin", "--bloom-size", str(2**62),
      "--nb-partitions", "16"],
     ["pipeline", "--backend", "mesh", "--kmer-size", "128",
      "--nb-partitions", str(1 << 28)],
 ])
-def test_cli_refuses_unported_commands(tmp_path, argv):
-    """The command line refuses, before it writes anything or asks for
-    the device, what the fused path does not port (the sort layouts of
-    the JAX package's stage_mesh_chunked); every subcommand and backend
-    is ported."""
+def test_cli_refuses_unported_commands(tmp_path, monkeypatch, argv):
+    """The command line refuses none of the sort layouts of the JAX
+    package's stage_mesh_chunked: past the one-step budget the run
+    reaches the chunked path (stubbed, with the repartition and the
+    partition directories: these runs would write 2^28 directories or
+    2^58-bit filters; the card is replaced by the CPU)."""
+    from kmtricks_tpu_torch.runtime import pipeline as P
+
+    seen = stub_unwritable(monkeypatch)
+    real = P.run_pipeline
+    monkeypatch.setattr(P, "run_pipeline",
+                        lambda opts, device: real(opts, device="cpu"))
     fof = write_fof(tmp_path / "c.fof")
-    with pytest.raises(NotImplementedError, match="stage_mesh_chunked"):
-        cli.main(argv + ["--file", fof, "--run-dir", str(tmp_path / "rd")])
-    assert not (tmp_path / "rd").exists()
+    assert cli.main(argv + ["--file", fof, "--run-dir", str(tmp_path / "rd"),
+                            "--max-memory", "1"]) == 0
+    assert seen == [("stage_mesh_chunked", True)]
 
 
 @pytest.mark.parametrize("opt", UNPACKED)
-def test_run_pipeline_refuses_outside_the_slice(tmp_path, opt):
-    """What the port still refuses: on the fused path (``auto`` or
-    ``mesh``), the layouts the JAX package's stream_layout returns None
-    for (hashes over 63 bits with the sample; k-mers whose partition, key
-    and sample bits pass its kw bound). Nothing is written."""
+def test_run_pipeline_refuses_outside_the_slice(tmp_path, monkeypatch, opt):
+    """The fused path (``auto`` or ``mesh``) refuses none of the layouts
+    the JAX package's stream_layout returns None for (hashes over 63 bits
+    with the sample; k-mers whose partition, key and sample bits pass its
+    kw bound): past the one-step budget they reach the chunked path
+    (stubbed, see :func:`stub_unwritable`); bft runs then build their
+    filters."""
     from kmtricks_tpu.parallel.pipeline import stream_layout as jax_layout
     from kmtricks_tpu_torch.core.hashers import HashWindow
+    from kmtricks_tpu_torch.ops.count_merge import stream_layout
 
+    seen = stub_unwritable(monkeypatch)
     fof = write_fof(tmp_path / "c.fof")
-    opts = PipelineOptions(fof=fof, run_dir=str(tmp_path / "rd"), **opt)
+    opts = PipelineOptions(fof=fof, run_dir=str(tmp_path / "rd"),
+                           max_memory_mb=1, **opt)
     window = HashWindow(opts.bloom_size, opts.nb_partitions, 10)
-    assert jax_layout(opts.kmer_size, 10, opts.nb_partitions, 10,
-                      opts.mode.split(":")[0],
+    cf = opts.mode.split(":")[0]
+    assert jax_layout(opts.kmer_size, 10, opts.nb_partitions, 10, cf,
                       window.window_size_bits) is None
-    with pytest.raises(NotImplementedError, match="stage_mesh_chunked"):
-        run_pipeline(opts, device="cpu")
-    assert not (tmp_path / "rd").exists()
+    assert stream_layout(opts.kmer_size, opts.nb_partitions, 10, cf,
+                         window.window_size_bits) is None
+    run_pipeline(opts, device="cpu")
+    assert seen[0] == ("stage_mesh_chunked", True)
+    assert seen[1:] == ([("stage_format", False)] if "bft" in opts.mode
+                        else [])
 
 
-def test_wide_partition_count_routes_to_kw(tmp_path):
-    """2^17 partitions at k = 31 (a case that used to be refused) pass
-    check_slice and take the JAX package's kw layout; no pipeline runs
-    (it would write 131,072 files per run directory)."""
+def test_wide_partition_count_routes_to_kw(tmp_path, monkeypatch):
+    """2^17 partitions at k = 31 (a case that used to be refused) take
+    the JAX package's kw layout, so the fused path streams them through
+    the engine (stubbed, see :func:`stub_unwritable`: a run would write
+    131,072 files per run directory)."""
     from kmtricks_tpu.parallel.pipeline import stream_layout as jax_layout
     from kmtricks_tpu_torch.ops.count_merge import stream_layout
-    from kmtricks_tpu_torch.runtime.pipeline import check_slice
 
+    seen = stub_unwritable(monkeypatch)
     fof = write_fof(tmp_path / "c.fof")
     for k, static in ((31, False), (31, True), (41, False), (127, True)):
-        check_slice(PipelineOptions(fof=fof, run_dir=str(tmp_path / "rd"),
-                                    kmer_size=k, nb_partitions=1 << 17,
-                                    static_repart=static))
+        run_pipeline(PipelineOptions(
+            fof=fof, run_dir=str(tmp_path / f"rd{k}{static}"), kmer_size=k,
+            nb_partitions=1 << 17, static_repart=static, max_memory_mb=1),
+            device="cpu")
+        assert seen.pop() == ("stage_mesh_stream", True)
         layout = stream_layout(k, 1 << 17, 10)
         assert layout == jax_layout(k, 8, 1 << 17, 10, "kmer", None)
         assert layout.startswith("kw.17.")
-    assert not (tmp_path / "rd").exists()
 
 
 @pytest.mark.parametrize("k,static", [(45, False), (96, True)])

@@ -277,6 +277,8 @@ def write_mixed_fof(tmp_path):
     return str(fof)
 
 
+UNPACKED_HASH = dict(mode="hash:count:bin", bloom_size=2**62)
+
 # route: (fof, options, the branch: (stage, chunks from the banks))
 ROUTES = {
     "one_step": ("ref", dict(), ("step", False)),
@@ -290,14 +292,24 @@ ROUTES = {
                              ("step", False)),
     "wide_banks_by_est_bytes": ("ref", dict(kmer_size=63, max_memory_mb=1),
                                 ("engine", True)),
+    # 62-bit window hashes with the sample: no packed layout
+    "unpacked_one_step": ("ref", dict(UNPACKED_HASH), ("step", False)),
+    "unpacked_banks_by_est_bytes": (
+        "ref", dict(UNPACKED_HASH, max_memory_mb=1), ("chunked", True)),
+    "unpacked_batch_by_padded_windows": (   # two samples: 63-bit hashes
+        "mixed", dict(UNPACKED_HASH, bloom_size=2**63, max_memory_mb=1),
+        ("chunked", False)),
+    "unpacked_batch_for_hist": ("ref", dict(UNPACKED_HASH, hist=True),
+                                ("chunked", False)),
 }
 
 
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_routing_matches_run_mesh_pipeline(tmp_path, route, monkeypatch):
     """The port takes the branch the JAX package's run_mesh_pipeline takes:
-    the fused step, the engine from the banks, or the engine over the
-    loaded batch (both sides' stages are replaced by recorders)."""
+    the fused step, the engine (or, for layouts no packed word takes, the
+    chunked path) from the banks, or over the loaded batch (both sides'
+    stages are replaced by recorders)."""
     fof_kind, kw, branch = ROUTES[route]
     fof = (write_mixed_fof(tmp_path) if fof_kind == "mixed"
            else write_fof(tmp_path / "c.fof"))
@@ -312,7 +324,8 @@ def test_routing_matches_run_mesh_pipeline(tmp_path, route, monkeypatch):
     monkeypatch.setattr(jdp, "stage_mesh_count_merge", rec("jax", "step"))
     monkeypatch.setattr(jdp, "stage_mesh_chunked", rec("jax", "chunked"))
     monkeypatch.setattr(P, "stage_mesh_stream", rec("port", "engine"))
-    monkeypatch.setattr(P, "stage_count_merge", rec("port", "step"))
+    monkeypatch.setattr(P, "stage_mesh_count_merge", rec("port", "step"))
+    monkeypatch.setattr(P, "stage_mesh_chunked", rec("port", "chunked"))
     opts = dict(dict(fof=fof, kmer_size=31, nb_partitions=4), **kw)
     jopts = JaxOptions(run_dir=str(tmp_path / "jax"), backend="mesh", **opts)
     jax_run_pipeline(jopts)

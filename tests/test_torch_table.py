@@ -193,12 +193,13 @@ def test_engine_steps_match_jax(k, hard_min):
     assert layout[:2] == layout_j[:2]
     jruns = jax_chunk_runs(chunks, k, m, nsamp, nparts, table, mesh)
 
-    step = build_chunk_pairs_step(k=k, m=m, nsamp=nsamp, nb_parts=nparts)
+    step = build_chunk_pairs_step((torch.device("cpu"),), k=k, m=m,
+                                  nsamp=nsamp, nb_parts=nparts)
     runs = []
     for (b, ln, sa), (pw, pc, npairs) in zip(chunks, jruns):
         tb, tl, ts, tt, _, _ = from_jax_inputs(b, ln, sa, table, None, None,
                                                "cpu")
-        ws, cnt = step(tb, tl, ts, tt)
+        (ws, cnt), = step(tb, tl, ts, tt)
         runs.append((ws, cnt))
         assert cnt.shape[0] == npairs
         jp, jk, js, _v, _o, _kd = jcm.unpack_sorted(
