@@ -113,7 +113,17 @@ and minimizer files included:
    shards against phase 8's run; walls, peaks and launches of each; K3
    and K4 on the largest receiver's own routed runs against their plain
    versions, timed beside their bytes bounds (and K3 beside
-   ``torch.sort``).
+   ``torch.sort``);
+19. several processes: the streaming engine over two ranks
+   (``torch.distributed`` with gloo, ``torch.multiprocessing.spawn``),
+   each a mesh of two shards on the one card, rank 0 running config +
+   repartition: the 30x bank (against phase 8's run) and, on the phase-4
+   bank, ``kmer:pa:bin``, ``--hist --soft-min 0.5``, ``hash:count:bin``
+   and a forced-fold run, each against the same engine run in one
+   process over four shards, byte for byte; each rank's wall and its
+   split, the bytes and wall of its exchanges, peak device bytes, decode
+   shares and K3/K4 launches. With two cards or more, the forced-fold run
+   over nccl (one rank per card); otherwise a line says it did not run.
 
 Kernel times are device times: CUDA events around a batch of
 back-to-back calls enqueued behind a sleep kernel, divided by their
@@ -1823,6 +1833,239 @@ def mesh_phase(fof_big, fof_e2e, eng_rd, S, MR, smi):
           "runs": runs, "receiver_merges": receivers, "gpu": smi})
     return ({tag: r["launches"] for tag, r in runs.items()}, receivers)
 
+# phase 19: two ranks of two shards each on one card (gloo), or one rank
+# per card (nccl, where there are two); a rank that outlasts this fails
+MP_WORLD = 2
+MP_SHARDS = 2
+MP_TIMEOUT_S = 420
+
+
+def mp_jobs(fof_small, fof_e2e, eng_rd, table_cap):
+    """Phase 19's engine runs: (tag, PipelineOptions fields, chunk
+    windows, per-shard table budget or None). The 30x bank at phase 8's
+    options and repartition; on the phase-4 bank (its repartition from
+    phase 4's host run, about ten chunks) ``kmer:pa:bin``, ``--hist
+    --soft-min 0.5``, ``hash:count:bin`` and a table budget that forces
+    folds."""
+    small = dict(fof=fof_small, kmer_size=31, hard_min=2, soft_min="2",
+                 share_min=2, recurrence_min=1,
+                 repart_from=os.path.join(WORK, "host_k31"),
+                 bloom_size=BLOOM_SMALL, max_memory_mb=SMALL_MEM)
+    nparts = len(os.listdir(os.path.join(eng_rd, "merge_infos")))
+    e2e = dict(fof=fof_e2e, kmer_size=31, hard_min=2, soft_min="2",
+               share_min=2, recurrence_min=1, repart_from=eng_rd,
+               nb_partitions=nparts, max_memory_mb=E2E_MEM)
+    jobs = [("e2e_30x", e2e, None),
+            ("pa", dict(small, mode="kmer:pa:bin"), None),
+            ("hist_soft_min_0.5", dict(small, hist=True, soft_min="0.5"),
+             None),
+            ("hash_count", dict(small, mode="hash:count:bin"), None),
+            ("forced_folds", small, table_cap)]
+    return [(tag, o, int(o["max_memory_mb"] * 1e6 / 48), cap)
+            for tag, o, cap in jobs]
+
+
+def engine_direct(P, SE, opts, mesh, chunk_windows, table_cap,
+                  loaded=None):
+    """The streaming engine itself on ``mesh``, streaming from the banks:
+    config + repartition first, or ``loaded``'s (kmdir, config,
+    repartition)."""
+    from kmtricks_tpu_torch.runtime.device_pipeline import _is_float_quantile
+
+    if loaded is None:
+        kmdir, config = P.stage_config(opts)
+        loaded = kmdir, config, P.stage_repart(kmdir, config, opts, mesh[0])
+    kmdir, config, rep = loaded
+    amin = (None if _is_float_quantile(opts.soft_min)
+            else P.resolve_soft_min(opts.soft_min, kmdir, len(kmdir.fof)))
+    SE.stage_mesh_stream(kmdir, config, opts, rep, amin, mesh=mesh,
+                         chunk_windows=chunk_windows, table_cap=table_cap,
+                         use_stream=True)
+
+
+def mp_rank(rank, world, port, backend, jobs, out_dir):
+    """One rank of phase 19 (``torch.multiprocessing.spawn``'s entry):
+    a mesh of ``MP_SHARDS`` shards (on ``cuda:0``, or on the rank's card
+    under nccl) in a global mesh over ``world`` ranks; for each job rank
+    0 runs config + repartition, the others load them after a barrier,
+    then every rank runs the engine with its launch counters and peak
+    reset just before. Writes its report to ``out_dir/rank<rank>.json``."""
+    sys.path.insert(0, ROOT)
+    from kmtricks_tpu_torch.core.repartition import Repartition
+    from kmtricks_tpu_torch.ops import merge_runs as MR
+    from kmtricks_tpu_torch.ops import segscan as S
+    from kmtricks_tpu_torch.parallel import multihost as mh
+    from kmtricks_tpu_torch.runtime import pipeline as P
+    from kmtricks_tpu_torch.runtime import stream_engine as SE
+    from kmtricks_tpu_torch.runtime.config import Config
+    from kmtricks_tpu_torch.runtime.kmdir import KmDir
+
+    mh.initialize(f"tcp://localhost:{port}", world, rank, backend,
+                  timeout_s=MP_TIMEOUT_S)
+    card = rank if backend == "nccl" else 0
+    mesh = mh.global_mesh([f"cuda:{card}"] * MP_SHARDS)
+    report = {}
+    for tag, fields, chunk_windows, table_cap in jobs:
+        opts = P.PipelineOptions(**fields)
+        if rank == 0:
+            kmdir, config = P.stage_config(opts)
+            rep = P.stage_repart(kmdir, config, opts, mesh[0])
+        mh.barrier(mesh)
+        if rank != 0:
+            kmdir = KmDir.init(opts.run_dir)
+            config = Config.load(kmdir.config_storage)
+            rep = Repartition.load(kmdir.repart_path)
+        r = counted_run((S.LAUNCHES, MR.LAUNCHES), lambda: engine_direct(
+            P, SE, opts, mesh, chunk_windows, table_cap,
+            (kmdir, config, rep)))
+        report[tag] = dict(r, engine=dict(SE.last_run))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(backend, jobs, out_dir) -> list:
+    """Phase 19's ranks as processes of their own (spawned: CUDA needs
+    it), each joined within ``MP_TIMEOUT_S``; a rank that fails or hangs
+    fails the phase. Returns each rank's report."""
+    import socket
+
+    import torch.multiprocessing as tmp
+
+    os.makedirs(out_dir)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = tmp.spawn(mp_rank, args=(MP_WORLD, port, backend, jobs, out_dir),
+                    nprocs=MP_WORLD, join=False)
+    deadline = time.monotonic() + MP_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise AssertionError(f"phase 19 ranks outlasted "
+                                     f"{MP_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    reports = []
+    for r in range(MP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def multiprocess_phase(fof_small, fof_e2e, eng_rd, S, MR, smi):
+    """Phase 19: the streaming engine over two processes (``torch.
+    distributed``, gloo), each rank a mesh of two shards on the one card:
+    every job of :func:`mp_jobs` against the same engine run on one
+    process over four shards (the 30x bank also against phase 8's run),
+    byte for byte. Prints each rank's walls and their split, the bytes
+    and wall of the exchanges between the ranks, peaks, decode shares and
+    launches. With two cards or more it also runs the forced-fold job over
+    nccl, one rank per card; otherwise it says that it did not. Returns
+    {run: launches summed over the ranks}."""
+    from kmtricks_tpu_torch.runtime import pipeline as P
+    from kmtricks_tpu_torch.runtime import stream_engine as SE
+
+    counters = (S.LAUNCHES, MR.LAUNCHES)
+    one = P.make_mesh(["cuda:0"] * (MP_WORLD * MP_SHARDS))
+    mp_dir = os.path.join(WORK, "mp")
+    os.makedirs(mp_dir)
+    # the one-process runs first: the forced-fold budget comes from the
+    # count run's largest shard table (the same shards on both)
+    refs, fold_cap = {}, None
+    for tag, fields, chunk_windows, _cap in mp_jobs(
+            fof_small, fof_e2e, eng_rd, None):
+        opts = P.PipelineOptions(**dict(
+            fields, run_dir=os.path.join(mp_dir, f"one_{tag}")))
+        refs[tag] = counted_run(counters, lambda: engine_direct(
+            P, SE, opts, one, chunk_windows,
+            fold_cap if tag == "forced_folds" else None))
+        refs[tag]["engine"] = dict(SE.last_run)
+        if tag == "pa":
+            # k = 31 count tables: a budget just over the largest shard's
+            fold_cap = int(max(SE.last_run["shard_table_entries"]) * 1.05)
+    if refs["forced_folds"]["engine"]["folds"] < 2:
+        raise AssertionError(f"expected two or more folds: "
+                             f"{refs['forced_folds']['engine']}")
+    jobs = [(tag, dict(fields, run_dir=os.path.join(mp_dir, f"mp_{tag}")),
+             cw, cap) for tag, fields, cw, cap in mp_jobs(
+                 fof_small, fof_e2e, eng_rd, fold_cap)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = spawn_ranks("gloo", jobs, os.path.join(mp_dir, "gloo"))
+    spawn_s = time.perf_counter() - t0
+    runs, launches = {}, {}
+    for tag, fields, _cw, _cap in jobs:
+        subs = mode_subs(fields.get("mode", "kmer:count:bin")) + (
+            ("histograms",) if fields.get("hist") else ())
+        one_rd = os.path.join(mp_dir, f"one_{tag}")
+        run = {"files_bytes": compare_run_dirs(one_rd, fields["run_dir"],
+                                               subs),
+               "one_process": {key: refs[tag][key] for key in (
+                   "wall_s", "peak_device_bytes", "launches")},
+               "one_process_walls_s": refs[tag]["engine"]["walls_s"],
+               "ranks": []}
+        if tag == "e2e_30x":
+            run["vs_phase8_files_bytes"] = compare_run_dirs(
+                eng_rd, fields["run_dir"])
+        if fields.get("hist"):
+            with open(os.path.join(one_rd, "merge_amin.txt")) as a, \
+                    open(os.path.join(fields["run_dir"],
+                                      "merge_amin.txt")) as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{tag}: thresholds differ")
+        for r, rep in enumerate(reports):
+            e = rep[tag]["engine"]
+            if (e["rank"], e["world"], e["shards"]) != (r, MP_WORLD,
+                                                        MP_SHARDS):
+                raise AssertionError(f"{tag} rank {r}: {e}")
+            run["ranks"].append({
+                "wall_s": rep[tag]["wall_s"], "walls_s": e["walls_s"],
+                "exchange": e["exchange"], "local_rows": e["local_rows"],
+                "chunks": e["chunks"], "folds": e["folds"],
+                "tail": e["tail"],
+                "peak_device_bytes": rep[tag]["peak_device_bytes"],
+                "launches": rep[tag]["launches"]})
+        rows = [x["local_rows"] for x in run["ranks"]]
+        if min(rows) <= 0:
+            raise AssertionError(f"{tag}: a rank decoded nothing: {rows}")
+        if not all(x["exchange"]["bytes_sent"] > 0 for x in run["ranks"]):
+            raise AssertionError(f"{tag}: no run crossed between ranks")
+        if tag == "forced_folds" and min(
+                x["folds"] for x in run["ranks"]) < 1:
+            raise AssertionError(f"{tag}: a rank never folded")
+        launches[tag] = {key: sum(x["launches"][key] for x in run["ranks"])
+                         for key in run["ranks"][0]["launches"]}
+        if not launches[tag]["K3"] + launches[tag]["K4"]:
+            raise AssertionError(f"{tag}: no receiver merged its runs")
+        runs[tag] = run
+        shutil.rmtree(fields["run_dir"])
+        if tag != "forced_folds":
+            shutil.rmtree(one_rd)
+    emit({"phase": "multiprocess", "backend": "gloo", "world": MP_WORLD,
+          "shards_per_rank": MP_SHARDS, "cards": 1,
+          "ranks_wall_s": spawn_s, "runs": runs, "gpu": smi})
+    ncards = torch.cuda.device_count()
+    if ncards < MP_WORLD:
+        emit({"phase": "multiprocess_nccl", "run": False,
+              "reason": f"{ncards} card"})
+    else:
+        nccl_jobs = [(tag, dict(f, run_dir=os.path.join(mp_dir, "nccl")),
+                      cw, cap) for tag, f, cw, cap in jobs
+                     if tag == "forced_folds"]
+        (rep, *_rest) = spawn_ranks("nccl", nccl_jobs,
+                                    os.path.join(mp_dir, "nccl_ranks"))
+        emit({"phase": "multiprocess_nccl", "run": True, "cards": ncards,
+              "files_bytes": compare_run_dirs(
+                  os.path.join(mp_dir, "one_forced_folds"),
+                  nccl_jobs[0][1]["run_dir"]),
+              "rank0": rep["forced_folds"], "gpu": smi})
+    shutil.rmtree(mp_dir)
+    return launches
+
 
 def reset(*counters) -> None:
     for c in counters:
@@ -2167,6 +2410,10 @@ def main() -> int:
             host_refs[name].result()
         mesh_launches, receivers = mesh_phase(fof_big, fof_e2e, eng_rd, S,
                                               MR, smi)
+
+        # 19. the engine over two processes
+        mp_launches = multiprocess_phase(fof_small, fof_e2e, eng_rd, S, MR,
+                                         smi)
     finally:
         host_pool.shutdown(cancel_futures=True)
         shutil.rmtree(WORK, ignore_errors=True)
@@ -2196,13 +2443,16 @@ def main() -> int:
         for name in ("bwd", "fwd", "K3", "K4"):
             by_path[name][path] = counts[name]
     # the chunked path's runs (phase 17) and the mesh's runs of more than
-    # one shard (phase 18), summed
+    # one shard (phase 18), summed; the engine over two processes (19)
     for name in ("bwd", "fwd", "K3", "K4"):
         by_path[name]["chunked"] = sum(v[name] for v in
                                        chunked_launches.values())
         by_path[name]["mesh"] = sum(
             v[name] for tag, v in mesh_launches.items()
             if not tag.endswith(" 1"))
+        # phase 19's runs, summed over the runs and the ranks
+        by_path[name]["multiprocess"] = sum(v[name] for v in
+                                            mp_launches.values())
     if not by_path["K3"]["mesh"] > 0:
         raise AssertionError("K3 never merged a receiver's runs on the "
                              "mesh path")

@@ -6,7 +6,11 @@ mode, k <= 128), as plain functions on tensors:
 * the mesh (:func:`make_mesh`, :func:`partition_to_device`): a tuple of
   torch devices, one per shard, where a device may repeat (a mesh of four
   shards on one card, or on the CPU, as the JAX tests place an 8-device
-  mesh on one CPU); each shard owns a contiguous block of partitions;
+  mesh on one CPU); each shard owns a contiguous block of partitions. A
+  mesh that spans processes (``parallel/multihost.py::global_mesh``) holds
+  this process's shards of ``world x local`` global ones: each process
+  feeds its own rows, destinations count every global shard, and the runs
+  for other processes' shards travel by :func:`_exchange`;
 * :func:`build_sharded_pipeline` (``build_sharded_pipeline``, and
   ``build_single_chip_step`` with a mesh of one device): encode (and the
   window hash), count+merge (sort and segment stage), then compaction, in
@@ -31,11 +35,13 @@ to its owner's device: nothing is dropped and nothing re-runs.
 
 from __future__ import annotations
 
+import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kmtricks_tpu_torch.ops.compact import compact_count_rows
 from kmtricks_tpu_torch.ops.count_merge import (
@@ -45,6 +51,7 @@ from kmtricks_tpu_torch.ops.count_merge import (
 from kmtricks_tpu_torch.ops.encode import encode_batch, encode_batch_wide
 from kmtricks_tpu_torch.ops.table import chunk_count_pairs, merge_pair_streams
 from kmtricks_tpu_torch.ops.xxh64 import window_hash
+from kmtricks_tpu_torch.parallel.multihost import ProcessMesh
 
 
 def make_mesh(devices=None) -> tuple:
@@ -112,29 +119,47 @@ def _dest_bounds(dest, ndev: int) -> list:
     return torch.searchsorted(dest, q).tolist()
 
 
+def rank_world(mesh) -> tuple[int, int]:
+    """(rank, world) of the process holding ``mesh``: (0, 1) for a mesh
+    of one process."""
+    if isinstance(mesh, ProcessMesh):
+        return mesh.rank, mesh.world
+    return 0, 1
+
+
+def _place(run, mesh, g: int):
+    """A run for global shard ``g``: on its device where this process
+    holds ``g``, else left where it is for :func:`_exchange`."""
+    rank, _world = rank_world(mesh)
+    n = len(mesh)
+    return _send(run, mesh[g - rank * n]) if g // n == rank else run
+
+
 def _route_sorted(layout: str, ws, mesh, *, nsamp: int, nb_parts: int,
                   window_bits: int | None = None) -> list:
-    """One shard's sorted packed words -> the run for each shard, on that
-    shard's device (counterpart of ``_route_sorted``). The partition
-    leads the k-mer layouts, and in hash layouts it is key // window, so
-    the destinations are non-decreasing along the sorted words and each
-    run is a slice, exactly sized (maybe empty)."""
-    ndev = len(mesh)
+    """One shard's sorted packed words -> the run for each global shard
+    (counterpart of ``_route_sorted``): on that shard's device where this
+    process holds it, else on this shard's device for
+    :func:`_exchange`. The partition leads the k-mer layouts, and in hash
+    layouts it is key // window, so the destinations are non-decreasing
+    along the sorted words and each run is a slice, exactly sized (maybe
+    empty)."""
+    ndev = len(mesh) * rank_world(mesh)[1]
     if ndev == 1:
         return [_send(tuple(ws), mesh[0])]
     dest = part_of_sorted(layout, ws, nsamp, window_bits) * ndev // nb_parts
     b = _dest_bounds(dest, ndev)
-    return [_send(tuple(w[b[d]:b[d + 1]] for w in ws), mesh[d])
-            for d in range(ndev)]
+    return [_place(tuple(w[b[g]:b[g + 1]] for w in ws), mesh, g)
+            for g in range(ndev)]
 
 
 def _bucket_and_route(part, keys, samp, mesh, *, nb_parts: int) -> list:
     """One shard's valid occurrences (keys no layout packs) -> the
-    (part, keys, samp) of each shard's partitions, on that shard's device
-    (counterpart of ``_bucket_and_route``): a stable grouping sort by
-    destination, then exactly sized slices; the receiver sorts them
-    (``ops/count_merge.py::sort_unpacked``)."""
-    ndev = len(mesh)
+    (part, keys, samp) of each global shard's partitions, placed as by
+    :func:`_route_sorted` (counterpart of ``_bucket_and_route``): a
+    stable grouping sort by destination, then exactly sized slices; the
+    receiver sorts them (``ops/count_merge.py::sort_unpacked``)."""
+    ndev = len(mesh) * rank_world(mesh)[1]
     if ndev == 1:
         return [_send((part, keys, samp), mesh[0])]
     dest = part.to(torch.int64) * ndev // nb_parts
@@ -142,9 +167,112 @@ def _bucket_and_route(part, keys, samp, mesh, *, nb_parts: int) -> list:
     b = _dest_bounds(dest[order], ndev)
     part, samp = part[order], samp[order]
     keys = _on_words(keys, lambda w: w[order])
-    return [_send((part[b[d]:b[d + 1]],
-                   _on_words(keys, lambda w: w[b[d]:b[d + 1]]),
-                   samp[b[d]:b[d + 1]]), mesh[d]) for d in range(ndev)]
+    return [_place((part[b[g]:b[g + 1]],
+                    _on_words(keys, lambda w: w[b[g]:b[g + 1]]),
+                    samp[b[g]:b[g + 1]]), mesh, g) for g in range(ndev)]
+
+
+def _routed(mesh, sent) -> list:
+    """What each local shard receives: ``sent[s][g]`` is the run local
+    shard ``s`` routed to global shard ``g``; returns, for each local
+    shard, the runs of every global shard in global order (those of other
+    processes through :func:`_exchange`)."""
+    rank, world = rank_world(mesh)
+    n = len(mesh)
+    got = [[None] * (n * world) for _ in range(n)]
+    for d in range(n):
+        for s in range(n):
+            got[d][rank * n + s] = sent[s][rank * n + d]
+    if world > 1:
+        _exchange(mesh, sent, got)
+    return got
+
+
+def sync_mesh(mesh) -> None:
+    """Wait for the work queued on each card of the mesh."""
+    for dev in set(mesh):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _leaves(run) -> list:
+    """The tensors of a run (nested tuples of equal-length 1-D tensors),
+    in order."""
+    if isinstance(run, tuple):
+        return [t for x in run for t in _leaves(x)]
+    return [run]
+
+
+def _rebuild(template, leaves):
+    """``template``'s nesting over the tensors of the iterator ``leaves``,
+    each cast to the dtype of the template's tensor in its place."""
+    if isinstance(template, tuple):
+        return tuple(_rebuild(x, leaves) for x in template)
+    return next(leaves).to(template.dtype)
+
+
+def _exchange(mesh, sent, got) -> None:
+    """The route between processes (``mesh`` a
+    ``parallel/multihost.py::ProcessMesh``), issued on the calling thread
+    after the shards' threads return, in the same order on every rank.
+    ``sent[s][g]``: the run local shard ``s`` routed to global shard
+    ``g`` (the same nesting and dtypes for every run; runs for this
+    process's shards already on their devices). Fills ``got[d][g]``, the
+    run global shard ``g`` of another process routed to local shard ``d``,
+    on its device.
+
+    The runs for each other rank are packed, source shard then
+    destination shard, each run's tensors as int64 one after another,
+    into one buffer. One ``all_to_all_single`` on the gloo group sends
+    every rank the lengths of its runs, one on the default group the
+    payload: under gloo, CUDA shards stage it through pinned host memory;
+    under NCCL it stays on the rank's card. Every rank takes part, with
+    empty runs where it has nothing to send."""
+    t0 = time.perf_counter()
+    n, (rank, world) = len(mesh), rank_world(mesh)
+    template = sent[0][0]
+    nleaf = len(_leaves(template))
+    nccl = mesh.backend == "nccl"
+    pin = not nccl and any(d.type == "cuda" for d in mesh)
+    # (rank, local source shard, its destination shard) of each remote run
+    remote = [(r, s, d) for r in range(world) if r != rank
+              for s in range(n) for d in range(n)]
+    # lengths[r, s * n + d]: the run local shard s routed to shard d of r
+    lengths = torch.zeros((world, n * n), dtype=torch.int64)
+    for r, s, d in remote:
+        lengths[r, s * n + d] = _leaves(sent[s][r * n + d])[0].numel()
+    got_len = torch.empty_like(lengths)
+    dist.all_to_all_single(got_len, lengths, group=mesh.host_group)
+    send_sizes = (lengths.sum(dim=1) * nleaf).tolist()
+    recv_sizes = (got_len.sum(dim=1) * nleaf).tolist()
+    home = mesh[0] if nccl else torch.device("cpu")
+    send = torch.empty(sum(send_sizes), dtype=torch.int64, device=home,
+                       pin_memory=pin)
+    off = 0
+    for r, s, d in remote:
+        for t in _leaves(sent[s][r * n + d]):
+            send[off:off + t.numel()].copy_(t, non_blocking=True)
+            off += t.numel()
+    # the copies into the buffer end before the collective reads it
+    sync_mesh(mesh)
+    recv = torch.empty(sum(recv_sizes), dtype=torch.int64, device=home,
+                       pin_memory=pin)
+    dist.all_to_all_single(recv, send, recv_sizes, send_sizes)
+    if nccl:
+        torch.cuda.synchronize(home)
+    off = 0
+    for r, s, d in remote:
+        # the run shard s of rank r routed to local shard d
+        m = int(got_len[r, s * n + d])
+        run = _rebuild(template, iter(recv[off + i * m:off + (i + 1) * m]
+                                      for i in range(nleaf)))
+        got[d][r * n + s] = _send(run, mesh[d])
+        off += m * nleaf
+    ex = mesh.exchanged
+    ex["bytes_sent"] += 8 * (sum(send_sizes) + lengths.numel())
+    ex["bytes_received"] += 8 * (sum(recv_sizes) + got_len.numel())
+    ex["seconds"] += time.perf_counter() - t0
+    ex["calls"] += 1
 
 
 def _on_words(keys, f):
@@ -227,7 +355,9 @@ def build_sharded_pipeline(mesh, *, k: int, m: int, nsamp: int,
     shard's device; ``mode="hash"`` counts window hashes of
     ``window_bits``-bit windows instead of k-mers (the rows' key column
     holds the hash), ``static_parts`` = nb_partitions computes
-    --static-repart partitions. Each shard encodes its rows and keeps the
+    --static-repart partitions. On a mesh that spans processes each
+    process passes its own rows (``multihost.host_shard_bounds``) and gets
+    its own shards' outputs. Each shard encodes its rows and keeps the
     valid windows; where a layout packs (k2, k3, kw; h1/h2) it packs and
     sorts them and routes the sorted words (:func:`_route_sorted`), and
     each receiver merges its runs (``count_merge_packed``: K3 or K4);
@@ -240,7 +370,6 @@ def build_sharded_pipeline(mesh, *, k: int, m: int, nsamp: int,
     part_bits = None if hashed else (nb_parts - 1).bit_length()
     layout = packed_layout(nsamp, key_bits, part_bits,
                            part_follows_keys=hashed)
-    ndev = len(mesh)
     hmv = _per_device(mesh, hard_min_vec)
     enc = dict(k=k, m=m, mode=mode, window_bits=window_bits,
                mmer_canonical=mmer_canonical, static_parts=static_parts)
@@ -261,23 +390,22 @@ def build_sharded_pipeline(mesh, *, k: int, m: int, nsamp: int,
                                  nsamp=nsamp, nb_parts=nb_parts,
                                  window_bits=window_bits)
 
-        sent = _each_shard(mesh, send)
+        got = _routed(mesh, _each_shard(mesh, send))
 
         def receive(d):
             dev = mesh[d]
-            got = [sent[src][d] for src in range(ndev)]
             kw = dict(nsamp=nsamp, hard_min=hard_min, rmin=rmin,
                       save_if=save_if, count_max=count_max,
                       hard_min_vec=hmv[dev], window_bits=window_bits)
             if layout is None:
-                part, keys, samp_r = _cat_fields(got)
+                part, keys, samp_r = _cat_fields(got[d])
                 out = count_merge_keys(
                     part, keys, samp_r, torch.ones_like(part, dtype=torch.bool),
                     tables[dev][1], key_bits=key_bits, part_bits=part_bits,
                     part_follows_keys=hashed, **kw)
             else:
-                out = count_merge_packed(got, tables[dev][1], layout=layout,
-                                         **kw)
+                out = count_merge_packed(got[d], tables[dev][1],
+                                         layout=layout, **kw)
             part_s, key_s, samp_s, _final, cnt, present, row_head, _k, _r = \
                 out
             return compact_count_rows(part_s, key_s, samp_s, cnt, present,
@@ -306,7 +434,6 @@ def build_chunk_pairs_step(mesh, *, k: int, m: int, nsamp: int,
     if layout is None:
         raise ValueError("the chunk pairs step needs a packed layout "
                          "(stage_mesh_chunked takes the others)")
-    ndev = len(mesh)
     enc = dict(k=k, m=m, mode=mode, window_bits=window_bits,
                mmer_canonical=mmer_canonical, static_parts=static_parts)
 
@@ -323,9 +450,9 @@ def build_chunk_pairs_step(mesh, *, k: int, m: int, nsamp: int,
                                  nsamp=nsamp, nb_parts=nb_parts,
                                  window_bits=window_bits)
 
-        sent = _each_shard(mesh, send)
+        got = _routed(mesh, _each_shard(mesh, send))
         return _each_shard(mesh, lambda d: chunk_count_pairs(merge_routed(
-            [sent[src][d] for src in range(ndev)])))
+            got[d])))
 
     return step
 

@@ -25,6 +25,7 @@ Counterpart of ``kmtricks_tpu/runtime/device_pipeline.py``:
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import queue
@@ -41,8 +42,9 @@ from kmtricks_tpu_torch.host import ops as hops
 from kmtricks_tpu_torch.io import formats as F
 from kmtricks_tpu_torch.io import sequences as seqio
 from kmtricks_tpu_torch.ops.encode import device_key_words
+from kmtricks_tpu_torch.parallel import multihost as mh
 from kmtricks_tpu_torch.parallel.pipeline import (
-    build_sharded_pipeline, partition_to_device)
+    build_sharded_pipeline, partition_to_device, rank_world)
 
 log = logging.getLogger("kmtricks_tpu")
 
@@ -67,12 +69,14 @@ def _needs_host_aggregation(opts) -> bool:
     return bool(opts.hist) or _is_float_quantile(opts.soft_min)
 
 
-def _stream_sample_blocks(kmdir, opts):
+def _stream_sample_blocks(kmdir, opts, entries=None):
     """Yield (sample_idx, batch, lengths) blocks across the collection,
-    decoding up to ``opts.threads`` samples concurrently (gz inflate and
-    the native parser release the GIL). With more than one thread the
-    samples' blocks interleave in no fixed order."""
-    entries = list(enumerate(kmdir.fof))
+    or across ``entries`` ((sample index, fof entry) pairs), decoding up
+    to ``opts.threads`` samples concurrently (gz inflate and the native
+    parser release the GIL). With more than one thread the samples'
+    blocks interleave in no fixed order."""
+    if entries is None:
+        entries = list(enumerate(kmdir.fof))
     threads = min(getattr(opts, "threads", 1) or 1, len(entries))
     if threads <= 1:
         for si, entry in entries:
@@ -141,8 +145,10 @@ def _stream_sample_blocks(kmdir, opts):
             pass
 
 
-def stream_row_chunks(kmdir, opts, k: int, L: int, rows: int):
-    """Stream the whole collection as (rows, L) uint8 chunks with (rows,)
+def stream_row_chunks(kmdir, opts, k: int, L: int, rows: int,
+                      entries=None):
+    """Stream the whole collection, or its samples ``entries`` ((sample
+    index, fof entry) pairs), as (rows, L) uint8 chunks with (rows,)
     int32 lengths and sample ids; the last chunk holds only the rows that
     are left (the JAX package pads it to the fixed shape its programs
     were compiled for). Reads shorter than k are dropped; reads longer
@@ -172,7 +178,7 @@ def stream_row_chunks(kmdir, opts, k: int, L: int, rows: int):
                 reset()
 
     reset()
-    for si, batch, lengths in _stream_sample_blocks(kmdir, opts):
+    for si, batch, lengths in _stream_sample_blocks(kmdir, opts, entries):
         keep = lengths >= k
         if not keep.all():
             batch, lengths = batch[keep], lengths[keep]
@@ -241,6 +247,14 @@ def _pow2ceil(x: int) -> int:
 MAX_READ_LEN = 4096     # longer reads split into overlapping segments
 
 
+def _stream_rows(ests, k, chunk_windows) -> tuple[int, int]:
+    """(L, rows) of the chunks decoded from banks of estimates ``ests``:
+    rows of the longest read, at most MAX_READ_LEN, and about
+    ``chunk_windows`` windows a chunk."""
+    L = max(k, min(max(e.max_size for e in ests), MAX_READ_LEN))
+    return L, max(1, chunk_windows // (L - k + 1))
+
+
 def chunk_source(kmdir, opts, k, chunk_windows, batch, lengths, sarr,
                  use_stream):
     """Host chunks of about ``chunk_windows`` windows as numpy (rows, L)
@@ -248,13 +262,10 @@ def chunk_source(kmdir, opts, k, chunk_windows, batch, lengths, sarr,
     decoded from the banks (rows of the longest read, at most
     MAX_READ_LEN), or slices of the loaded batch."""
     if use_stream:
-        longest = max(seqio.estimate(e.paths).max_size for e in kmdir.fof)
-        L = max(k, min(longest, MAX_READ_LEN))
-    else:
-        L = batch.shape[1]
-    rows = max(1, chunk_windows // (L - k + 1))
-    if use_stream:
+        L, rows = _stream_rows([seqio.estimate(e.paths) for e in kmdir.fof],
+                               k, chunk_windows)
         return stream_row_chunks(kmdir, opts, k, L, rows), rows
+    rows = max(1, chunk_windows // (batch.shape[1] - k + 1))
 
     def slices():
         for lo in range(0, batch.shape[0], rows):
@@ -262,6 +273,53 @@ def chunk_source(kmdir, opts, k, chunk_windows, batch, lengths, sarr,
                 sarr[lo:lo + rows]
 
     return slices(), rows
+
+
+def lpt_owners(ests, world: int) -> list:
+    """The rank that decodes each sample: greedy longest-processing-time
+    over the bank estimates' sequence counts, largest first, ties to the
+    lower index and rank (the JAX package's sample owners; every rank
+    computes the same from the same estimates)."""
+    order = sorted(range(len(ests)), key=lambda i: (-ests[i].sequences, i))
+    loads = [0] * world
+    owner = [0] * len(ests)
+    for i in order:
+        r = min(range(world), key=lambda q: (loads[q], q))
+        owner[i] = r
+        loads[r] += max(1, ests[i].sequences)
+    return owner
+
+
+def striped_chunks(kmdir, opts, k: int, chunk_windows: int, mesh):
+    """The chunk source of a mesh that spans processes (counterpart of
+    ``_mp_sharded_chunks``): this rank decodes only the samples
+    :func:`lpt_owners` gives it, into local chunks of ``rows // world``
+    rows (``rows`` as :func:`chunk_source`'s), decoded and pinned on a
+    background thread. Before each global chunk one all-reduce of a
+    has-data flag (``multihost.any_rank``, on the consumer's thread, so
+    the collectives keep one order on every rank) ends the stream when no
+    rank has data left; a rank whose samples are done feeds an empty
+    chunk until then. Returns (CPU tensor chunks, rows of a global
+    chunk)."""
+    ests = [seqio.estimate(e.paths) for e in kmdir.fof]
+    L, rows = _stream_rows(ests, k, chunk_windows)
+    local_rows = max(1, rows // mesh.world)
+    owner = lpt_owners(ests, mesh.world)
+    entries = [(i, e) for i, e in enumerate(kmdir.fof)
+               if owner[i] == mesh.rank]
+    local = prefetched(host_tensors(stream_row_chunks(
+        kmdir, opts, k, L, local_rows, entries=entries), mesh), 2)
+    empty = (torch.zeros((0, L), dtype=torch.uint8),
+             torch.zeros(0, dtype=torch.int32),
+             torch.zeros(0, dtype=torch.int32))
+
+    def agreed():
+        for item in itertools.chain(local, itertools.repeat(None)):
+            if not mh.any_rank(mesh, item is not None):
+                return
+            yield empty if item is None else item
+
+    return agreed(), local_rows * mesh.world
 
 
 def host_tensors(gen, mesh):
@@ -352,6 +410,16 @@ def _mesh_common(kmdir, config, opts):
             kmdir.fof.abundance_mins(opts.hard_min))
 
 
+def _one_process(mesh, what: str) -> None:
+    """Refuse a mesh that spans processes where ``what`` loads the
+    collection in one process (as the JAX engine refuses non-streamed
+    input there)."""
+    if rank_world(mesh)[1] > 1:
+        raise ValueError(f"{what} runs in one process; a mesh that spans "
+                         f"processes takes the streaming engine with "
+                         f"use_stream=True (each rank decodes its samples)")
+
+
 def stage_mesh_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
                            batch, lengths, sarr, mesh) -> None:
     """Count and merge the loaded collection over ``mesh`` in one step and
@@ -360,6 +428,7 @@ def stage_mesh_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
     shard's row budget."""
     from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
 
+    _one_process(mesh, "the one-step path")
     cf, window_bits, count_max, hard_mins = _mesh_common(kmdir, config, opts)
     nsamp = len(kmdir.fof)
     key_words = 2 if cf == "hash" else device_key_words(config.kmer_size)
@@ -425,6 +494,7 @@ def stage_mesh_chunked(kmdir, config, opts, repart, amin_vec, *, mesh,
     from kmtricks_tpu_torch.runtime.pipeline import (
         resolve_soft_min, write_merge_outputs)
 
+    _one_process(mesh, "the chunked path")
     cf, window_bits, count_max, hard_mins = _mesh_common(kmdir, config, opts)
     nsamp, k = len(kmdir.fof), config.kmer_size
     nb_parts = config.nb_partitions

@@ -1,9 +1,11 @@
 """Streaming matrix engine: banks -> device count tables -> files.
 
-Counterpart of the single-process body of ``kmtricks_tpu/runtime/
-stream_engine.py::stage_mesh_stream`` (k-mer and hash mode, k <= 128;
-wide k-mers in "kw" layouts of up to five sort words), over a mesh of
-devices (``parallel/pipeline.py::make_mesh``; one shard on one GPU).
+Counterpart of ``kmtricks_tpu/runtime/stream_engine.py::
+stage_mesh_stream`` (k-mer and hash mode, k <= 128; wide k-mers in "kw"
+layouts of up to five sort words), over a mesh of devices
+(``parallel/pipeline.py::make_mesh``; one shard on one GPU), or over a
+mesh that spans processes (``parallel/multihost.py::global_mesh``: each
+rank decodes its own samples and writes the partitions its shards own).
 Read chunks stream from the banks (or are sliced from a loaded batch) on
 a background thread; each chunk's rows split over the shards, and each
 shard routes its packed windows to the owners of their partitions, so
@@ -44,17 +46,19 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from kmtricks_tpu_torch.core.histogram import KHist
+from kmtricks_tpu_torch.core.histogram import KHist, compute_merge_thresholds
 from kmtricks_tpu_torch.host import ops as hops
 from kmtricks_tpu_torch.io import formats as F
 from kmtricks_tpu_torch.ops.count_merge import _layout_words, stream_layout
 from kmtricks_tpu_torch.ops.table import merge_pair_streams
+from kmtricks_tpu_torch.parallel import multihost as mh
 from kmtricks_tpu_torch.parallel.pipeline import (
     _each_shard, build_chunk_pairs_step, merge_finalize_bits,
-    table_compact, table_sort_collapse)
+    partition_to_device, rank_world, sync_mesh, table_compact,
+    table_sort_collapse)
 from kmtricks_tpu_torch.runtime.device_pipeline import (
     _is_float_quantile, _pow2ceil, chunk_source, fetch_row_keys,
-    hash_window_bits, host_tensors, prefetched)
+    hash_window_bits, host_tensors, prefetched, striped_chunks)
 
 log = logging.getLogger("kmtricks_tpu")
 
@@ -71,10 +75,24 @@ def table_budget(max_memory_mb: int, layout: str, nsamp: int) -> int:
         max_memory_mb * 1e6 / 3 / (4 * (nw + 1))) + 1) // 2)
 
 
-def _sync(mesh) -> None:
-    for dev in set(mesh):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+def _exchanged(mesh) -> dict:
+    """The totals of the mesh's run exchanges between processes so far
+    (zeros for a mesh of one process)."""
+    if isinstance(mesh, mh.ProcessMesh):
+        return dict(mesh.exchanged)
+    return {"bytes_sent": 0, "bytes_received": 0, "seconds": 0.0,
+            "calls": 0}
+
+
+def _owned(nb_parts: int, mesh) -> list:
+    """(partition, local shard) of each partition this process's shards
+    own, in partition order (:func:`~kmtricks_tpu_torch.parallel.pipeline.
+    partition_to_device` over the global shards)."""
+    rank, world = rank_world(mesh)
+    n = len(mesh)
+    owner = partition_to_device(nb_parts, n * world)
+    return [(p, int(owner[p]) - rank * n) for p in range(nb_parts)
+            if owner[p] // n == rank]
 
 
 def _cat(arrays):
@@ -95,12 +113,27 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
     from the banks; otherwise chunks are slices of the loaded ``batch``
     (with its ``lengths`` and sample ids ``sarr``). ``amin_vec`` None
     resolves the soft-min here, or after the histograms for a float
-    quantile."""
+    quantile.
+
+    On a mesh that spans processes (``parallel/multihost.py::
+    global_mesh``; every rank calls this with the same arguments) the
+    chunks stream from the banks, each rank decoding its own samples
+    (``device_pipeline.py::striped_chunks``), the chunk step routes runs
+    between processes, the histograms are summed over the ranks (rank 0
+    writes the ``.hist`` files and the thresholds file, and every rank
+    resolves the same thresholds), and each rank writes the partitions its
+    shards own into the shared run directory; every rank returns once all
+    have written."""
     # imported here: runtime.pipeline imports this module
     from kmtricks_tpu_torch.runtime.pipeline import (
         parse_mode, resolve_soft_min)
 
     t_start = time.perf_counter()
+    rank, world = rank_world(mesh)
+    if world > 1 and not use_stream:
+        raise ValueError(
+            "the engine on a mesh that spans processes streams from the "
+            "banks (use_stream=True): each rank decodes its own samples")
     nsamp = len(kmdir.fof)
     k = config.kmer_size
     nb_parts = config.nb_partitions
@@ -117,9 +150,14 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
     if table_cap is None:
         table_cap = table_budget(opts.max_memory_mb, layout, nsamp)
 
-    gen, rows_per_chunk = chunk_source(kmdir, opts, k, chunk_windows, batch,
-                                       lengths, sarr, use_stream)
-    chunks = prefetched(host_tensors(gen, mesh), 2)
+    if world > 1:
+        chunks, rows_per_chunk = striped_chunks(kmdir, opts, k,
+                                                chunk_windows, mesh)
+    else:
+        gen, rows_per_chunk = chunk_source(kmdir, opts, k, chunk_windows,
+                                           batch, lengths, sarr, use_stream)
+        chunks = prefetched(host_tensors(gen, mesh), 2)
+    exchanged = _exchanged(mesh)
     step = build_chunk_pairs_step(
         mesh, k=k, m=config.minim_size, nsamp=nsamp, nb_parts=nb_parts,
         mmer_canonical=config.mmer_scheme != "forward", mode=cf,
@@ -143,17 +181,18 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
         runs[d] = [(ws, cnt)]
         return 1
 
-    n_chunks = n_folds = 0
+    n_chunks = n_folds = local_rows = 0
     for cb, cl, cs in chunks:
         for d, run in enumerate(step(cb, cl, cs, table)):
             runs[d].append(run)
         n_chunks += 1
+        local_rows += int((cl > 0).sum())
         n_folds += sum(_each_shard(mesh, fold))
     if not n_chunks:
         raise ValueError("no sequences")
     n_runs = sum(len(r) for r in runs)
     n_entries = sum(int(r[1].shape[0]) for rs in runs for r in rs)
-    _sync(mesh)
+    sync_mesh(mesh)
     t_stream = time.perf_counter()
     log.info("streamed %d chunks (%d rows each) over %d shard(s) -> %d "
              "pair runs, %d entries, %d folds", n_chunks, rows_per_chunk,
@@ -161,9 +200,9 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
 
     tables = _each_shard(mesh, lambda d: table_sort_collapse(runs[d]))
     del runs
-    _sync(mesh)
+    sync_mesh(mesh)
     t_a = time.perf_counter()
-    table_entries = sum(int(cnt.shape[0]) for _ws, cnt in tables)
+    shard_entries = [int(cnt.shape[0]) for _ws, cnt in tables]
 
     def compact(d):
         ws, cnt = tables[d]
@@ -174,7 +213,7 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
 
     shards = _each_shard(mesh, compact)
     del tables
-    _sync(mesh)
+    sync_mesh(mesh)
     t_b = time.perf_counter()
     pa_bits = (mode, out) == ("pa", "bin") and not opts.plugin \
         and not want_hists
@@ -184,14 +223,19 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
     else:
         _fetch_merge_write(kmdir, config, opts, cf, mesh, shards, amin_vec,
                            hard_mins, count_max, want_hists)
+    if world > 1:
+        mh.barrier(mesh)
     t_end = time.perf_counter()
+    ex = _exchanged(mesh)
     last_run.clear()
     last_run.update(
-        shards=len(mesh), chunks=n_chunks, rows_per_chunk=rows_per_chunk,
-        runs=n_runs, folds=n_folds, run_entries=n_entries,
-        table_entries=table_entries,
+        shards=len(mesh), rank=rank, world=world, chunks=n_chunks,
+        rows_per_chunk=rows_per_chunk, local_rows=local_rows, runs=n_runs,
+        folds=n_folds, run_entries=n_entries,
+        table_entries=sum(shard_entries), shard_table_entries=shard_entries,
         rows=sum(int(r.shape[0]) for r, _p, _n in shards),
         tail="pa_bits" if pa_bits else "dense",
+        exchange={key: ex[key] - exchanged[key] for key in ex},
         walls_s={"chunk_loop": t_stream - t_start, "phase_a": t_a - t_stream,
                  "phase_b": t_b - t_a, "tail": t_end - t_b})
 
@@ -211,59 +255,87 @@ def _fetch_shards(cf, shards, nb_parts):
     return keys, bounds
 
 
+def _histograms(pre, k: int, mesh) -> list:
+    """Each sample's KHist of the counts of ``pre`` ((rows, nsamp) u32),
+    summed over the ranks where the mesh spans processes: their rows hold
+    disjoint partitions, so the sum is the clones' merge of
+    histogram.hpp:77-135 (counterpart of ``_mp_merge_hists``, with one
+    all-reduce in place of the run directory's partial files)."""
+    hists = [KHist(s, k) for s in range(pre.shape[1])]
+    for s, h in enumerate(hists):
+        col = pre[:, s]
+        h.inc_counts(col[col > 0].astype(np.uint64))
+    if rank_world(mesh)[1] == 1:
+        return hists
+    fields = ("uniq", "total", "oob_lu", "oob_ln", "oob_uu", "oob_un")
+    size = len(hists[0].hist_u)
+    planes = mh.sum_over_ranks(mesh, np.stack([np.concatenate([
+        h.hist_u, h.hist_n, np.array([getattr(h, f) for f in fields],
+                                     dtype=np.uint64)]) for h in hists]))
+    for h, row in zip(hists, planes):
+        h.hist_u, h.hist_n = row[:size].copy(), row[size:2 * size].copy()
+        for f, v in zip(fields, row[2 * size:]):
+            setattr(h, f, int(v))
+    return hists
+
+
 def _fetch_merge_write(kmdir, config, opts, cf, mesh, shards, amin_vec,
                        hard_mins, count_max, want_hists) -> None:
-    """The engine's host tail (counterpart of ``_fetch_merge_write`` and
-    ``_fetch_merge_write_pipelined``): one device-to-host copy of each
-    shard's row keys, counts and partition sizes, in owner order;
-    per-sample hard-min on the raw counts, then count_max saturation;
-    histograms (written under --hist); a float soft-min resolved from
-    them; then each partition's merge and write, fanned over the -t
-    thread pool."""
-    from kmtricks_tpu_torch.parallel.pipeline import partition_to_device
-    from kmtricks_tpu_torch.runtime.pipeline import (
-        resolve_soft_min, write_merge_outputs)
+    """The engine's host tail (counterpart of ``_fetch_merge_write``,
+    ``_fetch_merge_write_pipelined`` and ``_fetch_merge_write_multiproc``):
+    one device-to-host copy of each local shard's row keys, counts and
+    partition sizes, in owner order; per-sample hard-min on the raw
+    counts, then count_max saturation; histograms (summed over the ranks;
+    rank 0 writes them under --hist); a float soft-min resolved from them
+    (rank 0 writes the thresholds file); then the merge and write of each
+    partition this process's shards own, fanned over the -t thread
+    pool."""
+    from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
 
     nsamp = len(kmdir.fof)
+    rank = rank_world(mesh)[0]
     keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
     pre = _cat([p.cpu().numpy().view(np.uint32) for _r, p, _n in shards])
     if want_hists:
-        hists = [KHist(s, config.kmer_size) for s in range(nsamp)]
-        for s in range(nsamp):
-            col = pre[:, s]
-            hists[s].inc_counts(col[col > 0].astype(np.uint64))
-        if opts.hist:
+        hists = _histograms(pre, config.kmer_size, mesh)
+        if opts.hist and rank == 0:
             for s, entry in enumerate(kmdir.fof):
                 F.write_hist_file(kmdir.get_hist_path(entry.id), hists[s])
     if amin_vec is None:
-        amin_vec = resolve_soft_min(opts.soft_min, kmdir, nsamp)
+        # the float quantile (the engine resolves the other forms first)
+        amin_vec = np.asarray(compute_merge_thresholds(
+            hists, float(opts.soft_min),
+            kmdir.get_merge_th_path() if rank == 0 else None),
+            dtype=np.uint32)
     # per-sample hard-min on RAW counts, then count-type saturation
     # (count_processor.hpp:61-72 order); a row may end up all zero
     pre_m = np.where(pre >= hard_mins[None, :], np.minimum(pre, count_max),
                      0)
-    owner = partition_to_device(config.nb_partitions, len(mesh))
 
-    def merge_write(p):
+    def merge_write(job):
+        p, d = job
         sl = slice(int(bounds[p]), int(bounds[p + 1]))
         res = hops.merge_dense(keys[sl], pre_m[sl], amin_vec,
                                opts.recurrence_min, opts.share_min)
-        write_merge_outputs(kmdir, config, opts, p, res, mesh[owner[p]])
+        write_merge_outputs(kmdir, config, opts, p, res, mesh[d])
 
     nthreads = max(1, getattr(opts, "threads", 1) or 1)
     with ThreadPoolExecutor(max_workers=nthreads) as ex:
-        for f in [ex.submit(merge_write, p)
-                  for p in range(config.nb_partitions)]:
+        for f in [ex.submit(merge_write, job)
+                  for job in _owned(config.nb_partitions, mesh)]:
             f.result()
 
 
 def _fetch_merge_write_pa_bits(kmdir, config, opts, cf, mesh, shards,
                                amin_vec, hard_mins, count_max) -> None:
-    """The presence/absence tail (counterpart of the single-process
-    ``_fetch_merge_write_pa_bits``): the merge runs on each shard's device
-    (:func:`~kmtricks_tpu_torch.parallel.pipeline.merge_finalize_bits`),
-    and only the row keys, packed pa bits, keep flags and per-partition
-    statistics are copied to the host, shard by shard in owner order; the
-    host writes each partition's pa matrix and merge_info."""
+    """The presence/absence tail (counterpart of
+    ``_fetch_merge_write_pa_bits`` and ``_pa_write_multiproc``): the merge
+    runs on each local shard's device (:func:`~kmtricks_tpu_torch.parallel.
+    pipeline.merge_finalize_bits`), and only the row keys, packed pa bits,
+    keep flags and per-partition statistics are copied to the host, shard
+    by shard in owner order; the host writes the pa matrix and merge_info
+    of each partition this process's shards own, its statistics from its
+    owner shard."""
     nsamp = len(kmdir.fof)
     keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
 
@@ -284,12 +356,11 @@ def _fetch_merge_write_pa_bits(kmdir, config, opts, cf, mesh, shards,
 
     fin = _each_shard(mesh, finalize)
     packed, keep = _cat([f[0] for f in fin]), _cat([f[1] for f in fin])
-    # a shard's statistics are 0 outside its partitions
-    stats = sum(f[2] for f in fin).astype(np.uint64)
-    for p in range(config.nb_partitions):
+    for p, d in _owned(config.nb_partitions, mesh):
         sl = slice(int(bounds[p]), int(bounds[p + 1]))
         _pa_write_partition(kmdir, config, opts, cf, p, keys[sl],
-                            packed[sl], keep[sl], stats[:, p], nsamp)
+                            packed[sl], keep[sl],
+                            fin[d][2][:, p].astype(np.uint64), nsamp)
 
 
 def _pa_write_partition(kmdir, config, opts, cf, p, keys, packed, keep,

@@ -1,13 +1,16 @@
 """The port owns its host layer: no module of ``kmtricks_tpu_torch`` (nor
-``chip_smoke.py``) imports jax or the JAX package, and the port's copies of
-the JAX package's host modules give the same arrays and bytes as the
-originals."""
+``chip_smoke.py``, nor the port's multi-process test workers) imports jax
+or the JAX package, and the port's copies of the JAX package's host
+modules give the same arrays and bytes as the originals. The port's
+multi-process start refuses NCCL where two ranks would share a card."""
 
 import ast
 import pathlib
 
 import numpy as np
 import pytest
+import torch
+import torch.distributed as dist
 import xxhash
 
 from kmtricks_tpu import native as jax_native
@@ -20,11 +23,13 @@ from kmtricks_tpu_torch.core.repartition import Repartition
 from kmtricks_tpu_torch.host import ops as hops
 from kmtricks_tpu_torch.io import lz4
 from kmtricks_tpu_torch.io import sequences as seqio
+from kmtricks_tpu_torch.parallel import multihost as mh
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data_ref_exec"
 PORT_FILES = sorted((ROOT / "kmtricks_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_multihost_worker.py",
+    ROOT / "tests" / "torch_multihost_stream_worker.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -286,3 +291,28 @@ def test_port_sequences_parse_like_the_original():
     for (gb, gl), (eb, el) in zip(got, exp):
         np.testing.assert_array_equal(gb, eb)
         np.testing.assert_array_equal(gl, el)
+
+
+@pytest.mark.parametrize("cards, world", [(1, 2), (2, 3), (0, 2)])
+def test_nccl_refuses_ranks_that_share_a_card(monkeypatch, cards, world):
+    """NCCL takes a card of its own per rank: a world larger than the
+    host's cards raises in ``initialize``, before any process group
+    starts; gloo is not taken in its place."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda i: pytest.fail(
+        "a card was taken"))
+    for rank in range(world):
+        with pytest.raises(ValueError, match="card of its own per rank"):
+            mh.initialize("tcp://localhost:1", world, rank, "nccl")
+    assert not dist.is_initialized()
+
+
+def test_multihost_backend_is_the_callers(monkeypatch):
+    """Only gloo and nccl are taken, and nccl without CUDA raises."""
+    with pytest.raises(ValueError, match="gloo"):
+        mh.initialize("tcp://localhost:1", 2, 0, "mpi")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mh.initialize("tcp://localhost:1", 2, 0, "nccl")
+    assert not dist.is_initialized()
