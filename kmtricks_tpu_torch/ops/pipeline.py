@@ -21,6 +21,7 @@ from kmtricks_tpu_torch.ops.count_merge import (
     count_merge_keys, hash_key_bits, key_words)
 from kmtricks_tpu_torch.ops.encode import encode_batch, encode_batch_wide
 from kmtricks_tpu_torch.ops.xxh64 import window_hash
+from kmtricks_tpu_torch.runtime import trace
 
 BUCKET = 128
 
@@ -92,7 +93,8 @@ def count_sample_device(
     parts, valid = parts.reshape(-1), valid.reshape(-1)
     hashed = mode == "hash"
     if hashed:
-        keys = window_hash(keys, parts, window_bits)
+        with trace.span("hash.window", int(parts.shape[0])):
+            keys = window_hash(keys, parts, window_bits)
     (part_s, key_s, _samp, _final, cnt, present, _rh, _rk,
      _ro) = count_merge_keys(
         parts, keys, torch.zeros_like(parts), valid,

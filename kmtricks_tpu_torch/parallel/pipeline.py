@@ -52,6 +52,7 @@ from kmtricks_tpu_torch.ops.encode import encode_batch, encode_batch_wide
 from kmtricks_tpu_torch.ops.table import chunk_count_pairs, merge_pair_streams
 from kmtricks_tpu_torch.ops.xxh64 import window_hash
 from kmtricks_tpu_torch.parallel.multihost import ProcessMesh
+from kmtricks_tpu_torch.runtime import trace
 
 
 def make_mesh(devices=None) -> tuple:
@@ -305,7 +306,8 @@ def _shard_occurrences(batch, lengths, samp, repart_table, *, k: int,
     sampw = samp[:, None].expand(parts.shape)
     keys, parts = _on_words(keys, lambda w: w[valid]), parts[valid]
     if mode == "hash":
-        keys = window_hash(keys, parts, window_bits)
+        with trace.span("hash.window", int(parts.shape[0])):
+            keys = window_hash(keys, parts, window_bits)
     return parts, keys, sampw[valid]
 
 

@@ -25,6 +25,7 @@ Counterpart of ``kmtricks_tpu/runtime/device_pipeline.py``:
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 import math
@@ -45,6 +46,7 @@ from kmtricks_tpu_torch.ops.encode import device_key_words
 from kmtricks_tpu_torch.parallel import multihost as mh
 from kmtricks_tpu_torch.parallel.pipeline import (
     build_sharded_pipeline, partition_to_device, rank_world)
+from kmtricks_tpu_torch.runtime import trace
 
 log = logging.getLogger("kmtricks_tpu")
 
@@ -208,34 +210,68 @@ def stream_row_chunks(kmdir, opts, k: int, L: int, rows: int,
         yield state["buf"][:f], state["ln"][:f], state["sa"][:f]
 
 
-def prefetched(gen, depth: int = 2):
+def prefetched(gen, depth: int = 2, name: str | None = None):
     """Run a generator on a background thread with a bounded queue, so
     host decode overlaps device work. The worker starts at call time. An
     error on the worker is raised in the consumer: it fails the run
-    rather than ending the stream early."""
+    rather than ending the stream early. A consumer that abandons the
+    stream (closes the iterator, or drops it after an error) stops the
+    worker, which closes ``gen`` and lets go of the items it held.
+
+    ``name`` opens the spans ``<name>.decode`` on the worker (the time
+    in ``gen`` alone, not the wait for room in the queue) and
+    ``<name>.decode_wait`` on the consumer (the wait for an item)."""
     q: queue.Queue = queue.Queue(maxsize=max(1, depth))
     end = object()
     err: list[BaseException] = []
+    stop = threading.Event()
+    decode = trace.span if name else contextlib.nullcontext
+
+    def put(item) -> bool:
+        """put() that gives up once the consumer is gone (stop set)."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
 
     def worker():
+        it = iter(gen)
         try:
-            for item in gen:
-                q.put(item)
+            while not stop.is_set():
+                with decode(f"{name}.decode"):
+                    item = next(it, end)
+                if item is end or not put(item):
+                    return
         except BaseException as e:   # re-raised in the consumer below
             err.append(e)
         finally:
-            q.put(end)
+            put(end)
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
 
-    threading.Thread(target=worker, daemon=True).start()
+    threading.Thread(target=worker, name="prefetch", daemon=True).start()
 
     def iterate():
-        while True:
-            item = q.get()
-            if item is end:
-                if err:
-                    raise err[0]
-                return
-            yield item
+        try:
+            while True:
+                with decode(f"{name}.decode_wait"):
+                    item = q.get()
+                if item is end:
+                    if err:
+                        raise err[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
 
     return iterate()
 
@@ -308,7 +344,8 @@ def striped_chunks(kmdir, opts, k: int, chunk_windows: int, mesh):
     entries = [(i, e) for i, e in enumerate(kmdir.fof)
                if owner[i] == mesh.rank]
     local = prefetched(host_tensors(stream_row_chunks(
-        kmdir, opts, k, L, local_rows, entries=entries), mesh), 2)
+        kmdir, opts, k, L, local_rows, entries=entries), mesh), 2,
+        name="engine")
     empty = (torch.zeros((0, L), dtype=torch.uint8),
              torch.zeros(0, dtype=torch.int32),
              torch.zeros(0, dtype=torch.int32))
@@ -420,14 +457,26 @@ def _one_process(mesh, what: str) -> None:
                          f"use_stream=True (each rank decodes its samples)")
 
 
+def merge_write_partition(kmdir, config, opts, p: int, keys, pre,
+                          amin_vec, device) -> None:
+    """Merge partition ``p``'s dense rows (``keys`` and their pre-merge
+    counts ``pre``) on the host and write its outputs; ``device`` is the
+    owner shard's (it transposes bft windows)."""
+    from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
+
+    with trace.span("tail.merge", len(pre)):
+        res = hops.merge_dense(keys, pre, amin_vec, opts.recurrence_min,
+                               opts.share_min)
+    with trace.span("tail.write", len(pre)):
+        write_merge_outputs(kmdir, config, opts, p, res, device)
+
+
 def stage_mesh_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
                            batch, lengths, sarr, mesh) -> None:
     """Count and merge the loaded collection over ``mesh`` in one step and
     write every partition's outputs, each shard's partitions in
     :func:`partition_to_device` order. ``opts.max_memory_mb`` sets each
     shard's row budget."""
-    from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
-
     _one_process(mesh, "the one-step path")
     cf, window_bits, count_max, hard_mins = _mesh_common(kmdir, config, opts)
     nsamp = len(kmdir.fof)
@@ -452,20 +501,22 @@ def stage_mesh_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
              len(mesh))
     part_dev = partition_to_device(config.nb_partitions, len(mesh))
     for d, (rows, pre, nrows, _maxc, _npres) in enumerate(step(*args[:5])):
-        keys = fetch_row_keys(rows, cf)
-        pre = pre.cpu().numpy().view(np.uint32)
-        # rows are sorted by (partition, key): partition blocks are
-        # contiguous
-        bounds = np.searchsorted(rows[:, -1].cpu().numpy(),
-                                 np.arange(config.nb_partitions + 1))
+        with trace.span("tail.fetch") as fetch:
+            keys = fetch_row_keys(rows, cf)
+            pre = pre.cpu().numpy().view(np.uint32)
+            # rows are sorted by (partition, key): partition blocks are
+            # contiguous
+            part = rows[:, -1].cpu().numpy()
+            bounds = np.searchsorted(part,
+                                     np.arange(config.nb_partitions + 1))
+            fetch.n = keys.nbytes + pre.nbytes + part.nbytes
         if int(bounds[-1]) != nrows:
             raise RuntimeError(f"row partitions out of range: "
                                f"{int(bounds[-1])} of {nrows} rows")
         for p in np.flatnonzero(part_dev == d):
             sl = slice(int(bounds[p]), int(bounds[p + 1]))
-            res = hops.merge_dense(keys[sl], pre[sl], amin_vec,
-                                   opts.recurrence_min, opts.share_min)
-            write_merge_outputs(kmdir, config, opts, int(p), res, mesh[d])
+            merge_write_partition(kmdir, config, opts, int(p), keys[sl],
+                                  pre[sl], amin_vec, mesh[d])
 
 
 def stage_mesh_chunked(kmdir, config, opts, repart, amin_vec, *, mesh,
@@ -491,8 +542,7 @@ def stage_mesh_chunked(kmdir, config, opts, repart, amin_vec, *, mesh,
     any merge, the JAX package's ``streaming`` order (merge each partition
     as its tables are built) writes the same files and has no
     counterpart."""
-    from kmtricks_tpu_torch.runtime.pipeline import (
-        resolve_soft_min, write_merge_outputs)
+    from kmtricks_tpu_torch.runtime.pipeline import resolve_soft_min
 
     _one_process(mesh, "the chunked path")
     cf, window_bits, count_max, hard_mins = _mesh_common(kmdir, config, opts)
@@ -548,9 +598,8 @@ def stage_mesh_chunked(kmdir, config, opts, repart, amin_vec, *, mesh,
     owner = partition_to_device(nb_parts, len(mesh))
     for p in range(nb_parts):
         sl = slice(int(bounds[p]), int(bounds[p + 1]))
-        res = hops.merge_dense(keys[sl], pre[sl], amin_vec,
-                               opts.recurrence_min, opts.share_min)
-        write_merge_outputs(kmdir, config, opts, p, res, mesh[owner[p]])
+        merge_write_partition(kmdir, config, opts, p, keys[sl], pre[sl],
+                              amin_vec, mesh[owner[p]])
 
 
 def _sum_rows(keys_l, part_l, pre_l):

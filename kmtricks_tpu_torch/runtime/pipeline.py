@@ -62,6 +62,7 @@ from kmtricks_tpu_torch.parallel.pipeline import make_mesh
 from kmtricks_tpu_torch.runtime.device_pipeline import (
     _is_float_quantile, _load_global_batch, _needs_host_aggregation,
     hash_window_bits, stage_mesh_chunked, stage_mesh_count_merge)
+from kmtricks_tpu_torch.runtime import trace
 from kmtricks_tpu_torch.runtime.kmdir import KmDir
 from kmtricks_tpu_torch.runtime.stream_engine import stage_mesh_stream
 
@@ -289,23 +290,36 @@ def _sample_minimizer_bins_device(kmdir: KmDir, config: Config, device,
         two that holds its rows (eager torch compiles nothing per shape,
         so the JAX package's full-cap padding would only add work).
         Zero-length all-'N' rows tally nothing."""
-        B = min(cap_rows(L), 1 << max(7, (nrows - 1).bit_length()))
-        blk = np.full((B, L), ord("N"), np.uint8)
-        lens = np.zeros(B, np.int32)
-        r = 0
-        for batch, lengths in pieces:
-            n = len(lengths)
-            w = min(batch.shape[1], L)
-            blk[r:r + n, :w] = batch[:, :w]
-            lens[r:r + n] = lengths
-            r += n
-        packed, vbits = pack_2bit_host(blk)
-        put((upload(packed), upload(vbits), upload(lens)))
+        with trace.span("repart.pack") as pack:
+            B = min(cap_rows(L), 1 << max(7, (nrows - 1).bit_length()))
+            blk = np.full((B, L), ord("N"), np.uint8)
+            lens = np.zeros(B, np.int32)
+            r = 0
+            for batch, lengths in pieces:
+                n = len(lengths)
+                w = min(batch.shape[1], L)
+                blk[r:r + n, :w] = batch[:, :w]
+                lens[r:r + n] = lengths
+                r += n
+            packed, vbits = pack_2bit_host(blk)
+            pack.n = blk.nbytes
+        with trace.span("repart.upload",
+                        packed.nbytes + vbits.nbytes + lens.nbytes):
+            item = (upload(packed), upload(vbits), upload(lens))
+        put(item)
 
     def producer():
         try:
             pieces, nrows, L = [], 0, 128
-            for batch, lengths in _sample_batches(kmdir, config, bam_filter):
+            batches = _sample_batches(kmdir, config, bam_filter)
+            while True:
+                with trace.span("repart.parse") as parse:
+                    got = next(batches, None)
+                    if got is not None:
+                        parse.n = got[0].nbytes
+                if got is None:
+                    break
+                batch, lengths = got
                 bL = bucket_len(batch.shape[1])
                 while len(lengths):
                     newL = max(L, bL)
@@ -336,14 +350,16 @@ def _sample_minimizer_bins_device(kmdir: KmDir, config: Config, device,
     bins = rs.make_bins(m, device)
     try:
         while True:
-            item = q.get()
+            with trace.span("repart.tally_wait"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, BaseException):
                 raise item
             packed, vbits, lens = item
-            rs.tally_step(bins, packed, vbits, lens, k=k, m=m,
-                          freq_table=freq)
+            with trace.span("repart.tally_step", int(lens.shape[0])):
+                rs.tally_step(bins, packed, vbits, lens, k=k, m=m,
+                              freq_table=freq)
     finally:
         stop.set()
     t.join()
@@ -481,17 +497,21 @@ def stage_repart(kmdir: KmDir, config: Config, opts: PipelineOptions,
     else:
         bins = sample_minimizer_bins(kmdir, config, opts.bam_filter(),
                                      device=device)
-        if config.repart_type == 1:
-            # computeDistrib is computed then overwritten in the reference
-            # (RepartitionAlgorithm.cpp:483-488) — net effect is lexi only
-            rep = Repartition.from_bin_sizes_lexi(bins,
-                                                  config.nb_partitions)
-        else:
-            rep = Repartition.from_bin_sizes(bins, config.nb_partitions)
-    rep.save(kmdir.repart_path)
-    if config.minim_size <= 12:   # task.hpp:160-168
-        rep.write_minimizers(kmdir.get_minim_paths(config.nb_partitions),
-                             config.minim_size)
+        with trace.span("repart.place", len(bins)):
+            if config.repart_type == 1:
+                # computeDistrib is computed then overwritten in the
+                # reference (RepartitionAlgorithm.cpp:483-488) — net effect
+                # is lexi only
+                rep = Repartition.from_bin_sizes_lexi(bins,
+                                                      config.nb_partitions)
+            else:
+                rep = Repartition.from_bin_sizes(bins, config.nb_partitions)
+    with trace.span("repart.write"):
+        rep.save(kmdir.repart_path)
+        if config.minim_size <= 12:   # task.hpp:160-168
+            rep.write_minimizers(
+                kmdir.get_minim_paths(config.nb_partitions),
+                config.minim_size)
     return rep
 
 
@@ -873,7 +893,21 @@ def run_pipeline(opts: PipelineOptions, device="cuda", *,
     device may repeat), else every visible CUDA device for "cuda", else
     ``device`` alone. ``chunk_windows`` and ``table_cap`` set the
     streaming engine's chunk size and (per shard) table budget. Returns
-    the KmDir."""
+    the KmDir. The run's spans (:mod:`~kmtricks_tpu_torch.runtime.trace`)
+    are in ``trace.last_run`` once it returns or fails."""
+    trace.begin_run()
+    try:
+        return _run_backend(opts, device, devices, chunk_windows,
+                            table_cap)
+    finally:
+        # through the module: a wrapper put on trace.end_run takes effect
+        trace.end_run()
+
+
+def _run_backend(opts: PipelineOptions, device, devices, chunk_windows,
+                 table_cap):
+    """:func:`run_pipeline` on the backend :func:`_resolve_backend`
+    picks."""
     if _is_float_quantile(opts.soft_min) and not opts.hist:
         # the quantile thresholds are read from the histogram files
         log.info("float --soft-min: enabling histograms")
@@ -1028,7 +1062,9 @@ def _run_fused(opts: PipelineOptions, mesh, chunk_windows, table_cap):
     if est_bytes > budget_windows:
         engine(use_stream=True)
     else:
-        batch, lengths, sarr = _load_global_batch(kmdir, opts, len(mesh))
+        with trace.span("step.load"):
+            batch, lengths, sarr = _load_global_batch(kmdir, opts,
+                                                      len(mesh))
         n_windows = batch.shape[0] * (batch.shape[1] - config.kmer_size + 1)
         if n_windows > budget_windows or _needs_host_aggregation(opts):
             engine(batch=batch, lengths=lengths, sarr=sarr)

@@ -40,7 +40,6 @@ counterpart here.
 from __future__ import annotations
 
 import logging
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -56,13 +55,16 @@ from kmtricks_tpu_torch.parallel.pipeline import (
     _each_shard, build_chunk_pairs_step, merge_finalize_bits,
     partition_to_device, rank_world, sync_mesh, table_compact,
     table_sort_collapse)
+from kmtricks_tpu_torch.runtime import trace
 from kmtricks_tpu_torch.runtime.device_pipeline import (
     _is_float_quantile, _pow2ceil, chunk_source, fetch_row_keys,
-    hash_window_bits, host_tensors, prefetched, striped_chunks)
+    hash_window_bits, host_tensors, merge_write_partition, prefetched,
+    striped_chunks)
 
 log = logging.getLogger("kmtricks_tpu")
 
-# counts and phase walls of the most recent stage_mesh_stream run
+# counts and phase walls (the seconds of its engine.* spans) of the most
+# recent stage_mesh_stream run
 last_run: dict = {}
 
 
@@ -128,104 +130,110 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
     from kmtricks_tpu_torch.runtime.pipeline import (
         parse_mode, resolve_soft_min)
 
-    t_start = time.perf_counter()
-    rank, world = rank_world(mesh)
-    if world > 1 and not use_stream:
-        raise ValueError(
-            "the engine on a mesh that spans processes streams from the "
-            "banks (use_stream=True): each rank decodes its own samples")
-    nsamp = len(kmdir.fof)
-    k = config.kmer_size
-    nb_parts = config.nb_partitions
-    cf, mode, out = parse_mode(opts.mode)
-    window_bits = hash_window_bits(kmdir, cf)
-    layout = stream_layout(k, nb_parts, nsamp, cf, window_bits)
-    if amin_vec is None and not _is_float_quantile(opts.soft_min):
-        amin_vec = resolve_soft_min(opts.soft_min, kmdir, nsamp)
-    count_max = (1 << (8 * config.count_bytes)) - 1
-    hard_mins = np.asarray(kmdir.fof.abundance_mins(opts.hard_min),
-                           dtype=np.uint32)
-    want_hists = opts.hist or amin_vec is None
-    dev_hard_min = 1 if want_hists else int(hard_mins.min())
-    if table_cap is None:
-        table_cap = table_budget(opts.max_memory_mb, layout, nsamp)
-
-    if world > 1:
-        chunks, rows_per_chunk = striped_chunks(kmdir, opts, k,
-                                                chunk_windows, mesh)
-    else:
-        gen, rows_per_chunk = chunk_source(kmdir, opts, k, chunk_windows,
-                                           batch, lengths, sarr, use_stream)
-        chunks = prefetched(host_tensors(gen, mesh), 2)
-    exchanged = _exchanged(mesh)
-    step = build_chunk_pairs_step(
-        mesh, k=k, m=config.minim_size, nsamp=nsamp, nb_parts=nb_parts,
-        mmer_canonical=config.mmer_scheme != "forward", mode=cf,
-        window_bits=window_bits,
-        static_parts=nb_parts if opts.static_repart else None)
-    table = torch.from_numpy(repart.table.astype(np.int32)).to(mesh[0])
-
-    runs = [[] for _ in mesh]       # each shard's table: its pair runs
-
-    def fold(d) -> int:
-        """Fold shard ``d``'s runs into one table once they pass the
-        budget; 1 if it folded."""
-        if sum(int(r[1].shape[0]) for r in runs[d]) <= table_cap:
-            return 0
-        ws, cnt = merge_pair_streams(runs[d])
-        if cnt.shape[0] > table_cap:
+    with trace.span("engine.chunk_loop") as w_loop:
+        rank, world = rank_world(mesh)
+        if world > 1 and not use_stream:
             raise ValueError(
-                f"device table overflow ({cnt.shape[0]} entries > "
-                f"{table_cap} budget at --max-memory "
-                f"{opts.max_memory_mb} MB)")
-        runs[d] = [(ws, cnt)]
-        return 1
+                "the engine on a mesh that spans processes streams from "
+                "the banks (use_stream=True): each rank decodes its own "
+                "samples")
+        nsamp = len(kmdir.fof)
+        k = config.kmer_size
+        nb_parts = config.nb_partitions
+        cf, mode, out = parse_mode(opts.mode)
+        window_bits = hash_window_bits(kmdir, cf)
+        layout = stream_layout(k, nb_parts, nsamp, cf, window_bits)
+        if amin_vec is None and not _is_float_quantile(opts.soft_min):
+            amin_vec = resolve_soft_min(opts.soft_min, kmdir, nsamp)
+        count_max = (1 << (8 * config.count_bytes)) - 1
+        hard_mins = np.asarray(kmdir.fof.abundance_mins(opts.hard_min),
+                               dtype=np.uint32)
+        want_hists = opts.hist or amin_vec is None
+        dev_hard_min = 1 if want_hists else int(hard_mins.min())
+        if table_cap is None:
+            table_cap = table_budget(opts.max_memory_mb, layout, nsamp)
 
-    n_chunks = n_folds = local_rows = 0
-    for cb, cl, cs in chunks:
-        for d, run in enumerate(step(cb, cl, cs, table)):
-            runs[d].append(run)
-        n_chunks += 1
-        local_rows += int((cl > 0).sum())
-        n_folds += sum(_each_shard(mesh, fold))
-    if not n_chunks:
-        raise ValueError("no sequences")
-    n_runs = sum(len(r) for r in runs)
-    n_entries = sum(int(r[1].shape[0]) for rs in runs for r in rs)
-    sync_mesh(mesh)
-    t_stream = time.perf_counter()
-    log.info("streamed %d chunks (%d rows each) over %d shard(s) -> %d "
-             "pair runs, %d entries, %d folds", n_chunks, rows_per_chunk,
-             len(mesh), n_runs, n_entries, n_folds)
+        if world > 1:
+            chunks, rows_per_chunk = striped_chunks(kmdir, opts, k,
+                                                    chunk_windows, mesh)
+        else:
+            gen, rows_per_chunk = chunk_source(kmdir, opts, k,
+                                               chunk_windows, batch, lengths,
+                                               sarr, use_stream)
+            chunks = prefetched(host_tensors(gen, mesh), 2, name="engine")
+        exchanged = _exchanged(mesh)
+        step = build_chunk_pairs_step(
+            mesh, k=k, m=config.minim_size, nsamp=nsamp, nb_parts=nb_parts,
+            mmer_canonical=config.mmer_scheme != "forward", mode=cf,
+            window_bits=window_bits,
+            static_parts=nb_parts if opts.static_repart else None)
+        table = torch.from_numpy(repart.table.astype(np.int32)).to(
+            mesh[0])
 
-    tables = _each_shard(mesh, lambda d: table_sort_collapse(runs[d]))
-    del runs
-    sync_mesh(mesh)
-    t_a = time.perf_counter()
-    shard_entries = [int(cnt.shape[0]) for _ws, cnt in tables]
+        runs = [[] for _ in mesh]       # each shard's table: its pair runs
 
-    def compact(d):
-        ws, cnt = tables[d]
-        rows, pre, part_rows, _maxc, _npres = table_compact(
-            ws, cnt, layout=layout, nsamp=nsamp, hard_min=dev_hard_min,
-            nb_parts=nb_parts, window_bits=window_bits)
-        return rows, pre, part_rows
+        def fold(d) -> int:
+            """Fold shard ``d``'s runs into one table once they pass the
+            budget; 1 if it folded."""
+            if sum(int(r[1].shape[0]) for r in runs[d]) <= table_cap:
+                return 0
+            ws, cnt = merge_pair_streams(runs[d])
+            if cnt.shape[0] > table_cap:
+                raise ValueError(
+                    f"device table overflow ({cnt.shape[0]} entries > "
+                    f"{table_cap} budget at --max-memory "
+                    f"{opts.max_memory_mb} MB)")
+            runs[d] = [(ws, cnt)]
+            return 1
 
-    shards = _each_shard(mesh, compact)
-    del tables
-    sync_mesh(mesh)
-    t_b = time.perf_counter()
-    pa_bits = (mode, out) == ("pa", "bin") and not opts.plugin \
-        and not want_hists
-    if pa_bits:
-        _fetch_merge_write_pa_bits(kmdir, config, opts, cf, mesh, shards,
-                                   amin_vec, hard_mins, count_max)
-    else:
-        _fetch_merge_write(kmdir, config, opts, cf, mesh, shards, amin_vec,
-                           hard_mins, count_max, want_hists)
-    if world > 1:
-        mh.barrier(mesh)
-    t_end = time.perf_counter()
+        n_chunks = n_folds = local_rows = 0
+        for cb, cl, cs in chunks:
+            with trace.span("engine.chunk_step", int(cb.shape[0])):
+                for d, run in enumerate(step(cb, cl, cs, table)):
+                    runs[d].append(run)
+            n_chunks += 1
+            local_rows += int((cl > 0).sum())
+            with trace.span("engine.fold"):
+                n_folds += sum(_each_shard(mesh, fold))
+        if not n_chunks:
+            raise ValueError("no sequences")
+        n_runs = sum(len(r) for r in runs)
+        n_entries = sum(int(r[1].shape[0]) for rs in runs for r in rs)
+        sync_mesh(mesh)
+    with trace.span("engine.phase_a") as w_a:
+        log.info("streamed %d chunks (%d rows each) over %d shard(s) -> "
+                 "%d pair runs, %d entries, %d folds", n_chunks,
+                 rows_per_chunk, len(mesh), n_runs, n_entries, n_folds)
+
+        tables = _each_shard(mesh, lambda d: table_sort_collapse(runs[d]))
+        del runs
+        sync_mesh(mesh)
+    with trace.span("engine.phase_b") as w_b:
+        shard_entries = [int(cnt.shape[0]) for _ws, cnt in tables]
+
+        def compact(d):
+            ws, cnt = tables[d]
+            rows, pre, part_rows, _maxc, _npres = table_compact(
+                ws, cnt, layout=layout, nsamp=nsamp,
+                hard_min=dev_hard_min, nb_parts=nb_parts,
+                window_bits=window_bits)
+            return rows, pre, part_rows
+
+        shards = _each_shard(mesh, compact)
+        del tables
+        sync_mesh(mesh)
+    with trace.span("engine.tail") as w_tail:
+        pa_bits = (mode, out) == ("pa", "bin") and not opts.plugin \
+            and not want_hists
+        if pa_bits:
+            _fetch_merge_write_pa_bits(kmdir, config, opts, cf, mesh,
+                                       shards, amin_vec, hard_mins,
+                                       count_max)
+        else:
+            _fetch_merge_write(kmdir, config, opts, cf, mesh, shards,
+                               amin_vec, hard_mins, count_max, want_hists)
+        if world > 1:
+            mh.barrier(mesh)
     ex = _exchanged(mesh)
     last_run.clear()
     last_run.update(
@@ -236,8 +244,8 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
         rows=sum(int(r.shape[0]) for r, _p, _n in shards),
         tail="pa_bits" if pa_bits else "dense",
         exchange={key: ex[key] - exchanged[key] for key in ex},
-        walls_s={"chunk_loop": t_stream - t_start, "phase_a": t_a - t_stream,
-                 "phase_b": t_b - t_a, "tail": t_end - t_b})
+        walls_s={"chunk_loop": w_loop.s, "phase_a": w_a.s,
+                 "phase_b": w_b.s, "tail": w_tail.s})
 
 
 def _fetch_shards(cf, shards, nb_parts):
@@ -290,37 +298,40 @@ def _fetch_merge_write(kmdir, config, opts, cf, mesh, shards, amin_vec,
     (rank 0 writes the thresholds file); then the merge and write of each
     partition this process's shards own, fanned over the -t thread
     pool."""
-    from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
-
-    nsamp = len(kmdir.fof)
     rank = rank_world(mesh)[0]
-    keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
-    pre = _cat([p.cpu().numpy().view(np.uint32) for _r, p, _n in shards])
-    if want_hists:
-        hists = _histograms(pre, config.kmer_size, mesh)
-        if opts.hist and rank == 0:
-            for s, entry in enumerate(kmdir.fof):
-                F.write_hist_file(kmdir.get_hist_path(entry.id), hists[s])
-    if amin_vec is None:
-        # the float quantile (the engine resolves the other forms first)
-        amin_vec = np.asarray(compute_merge_thresholds(
-            hists, float(opts.soft_min),
-            kmdir.get_merge_th_path() if rank == 0 else None),
-            dtype=np.uint32)
-    # per-sample hard-min on RAW counts, then count-type saturation
-    # (count_processor.hpp:61-72 order); a row may end up all zero
-    pre_m = np.where(pre >= hard_mins[None, :], np.minimum(pre, count_max),
-                     0)
+    with trace.span("tail.fetch") as fetch:
+        keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
+        pre = _cat([p.cpu().numpy().view(np.uint32)
+                    for _r, p, _n in shards])
+        fetch.n = keys.nbytes + bounds.nbytes + pre.nbytes
+    with trace.span("tail.hard_min"):
+        if want_hists:
+            hists = _histograms(pre, config.kmer_size, mesh)
+            if opts.hist and rank == 0:
+                for s, entry in enumerate(kmdir.fof):
+                    F.write_hist_file(kmdir.get_hist_path(entry.id),
+                                      hists[s])
+        if amin_vec is None:
+            # the float quantile (the engine resolves the other forms
+            # first)
+            amin_vec = np.asarray(compute_merge_thresholds(
+                hists, float(opts.soft_min),
+                kmdir.get_merge_th_path() if rank == 0 else None),
+                dtype=np.uint32)
+        # per-sample hard-min on RAW counts, then count-type saturation
+        # (count_processor.hpp:61-72 order); a row may end up all zero
+        pre_m = np.where(pre >= hard_mins[None, :],
+                         np.minimum(pre, count_max), 0)
 
     def merge_write(job):
         p, d = job
         sl = slice(int(bounds[p]), int(bounds[p + 1]))
-        res = hops.merge_dense(keys[sl], pre_m[sl], amin_vec,
-                               opts.recurrence_min, opts.share_min)
-        write_merge_outputs(kmdir, config, opts, p, res, mesh[d])
+        merge_write_partition(kmdir, config, opts, p, keys[sl], pre_m[sl],
+                              amin_vec, mesh[d])
 
     nthreads = max(1, getattr(opts, "threads", 1) or 1)
-    with ThreadPoolExecutor(max_workers=nthreads) as ex:
+    with trace.span("tail.merge_write"), \
+            ThreadPoolExecutor(max_workers=nthreads) as ex:
         for f in [ex.submit(merge_write, job)
                   for job in _owned(config.nb_partitions, mesh)]:
             f.result()
@@ -337,7 +348,9 @@ def _fetch_merge_write_pa_bits(kmdir, config, opts, cf, mesh, shards,
     of each partition this process's shards own, its statistics from its
     owner shard."""
     nsamp = len(kmdir.fof)
-    keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
+    with trace.span("tail.fetch") as fetch:
+        keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
+        fetch.n = keys.nbytes + bounds.nbytes
 
     def finalize(d):
         _rows, pre, part_rows = shards[d]
@@ -358,9 +371,10 @@ def _fetch_merge_write_pa_bits(kmdir, config, opts, cf, mesh, shards,
     packed, keep = _cat([f[0] for f in fin]), _cat([f[1] for f in fin])
     for p, d in _owned(config.nb_partitions, mesh):
         sl = slice(int(bounds[p]), int(bounds[p + 1]))
-        _pa_write_partition(kmdir, config, opts, cf, p, keys[sl],
-                            packed[sl], keep[sl],
-                            fin[d][2][:, p].astype(np.uint64), nsamp)
+        with trace.span("tail.write", sl.stop - sl.start):
+            _pa_write_partition(kmdir, config, opts, cf, p, keys[sl],
+                                packed[sl], keep[sl],
+                                fin[d][2][:, p].astype(np.uint64), nsamp)
 
 
 def _pa_write_partition(kmdir, config, opts, cf, p, keys, packed, keep,
