@@ -123,7 +123,17 @@ and minimizer files included:
    process over four shards, byte for byte; each rank's wall and its
    split, the bytes and wall of its exchanges, peak device bytes, decode
    shares and K3/K4 launches. With two cards or more, the forced-fold run
-   over nccl (one rank per card); otherwise a line says it did not run.
+   over nccl (one rank per card); otherwise a line says it did not run;
+20. the dense tails' merge on the card: ``merge_finalize`` against the
+   host's numpy hard-min, clamp and ``merge_dense`` on a random 6,000,000
+   x 10 count matrix at 1-, 2- and 4-byte count types (final counts, keep
+   flags and statistics equal), with the device time of its counts and
+   bits forms, their extra device memory, the host merge's seconds and the
+   copy of the final counts to the host, pageable and page-locked.
+
+``python3 chip_smoke.py --tail`` runs phases 1, 4, 7 and 20 alone: what
+the dense tail's merge on the card runs through, the engine's histogram
+and float soft-min branch included.
 
 Kernel times are device times: CUDA events around a batch of
 back-to-back calls enqueued behind a sleep kernel, divided by their
@@ -140,6 +150,7 @@ printing a result. Nothing here imports jax or the JAX package
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -836,7 +847,7 @@ def hash_full_size(fof_big, host_full, fof_e2e, eng_rd, S, MR, SE, dev,
     from kmtricks_tpu_torch.ops.encode import encode_batch
     from kmtricks_tpu_torch.ops.xxh64 import window_hash
     from kmtricks_tpu_torch.parallel.pipeline import (
-        merge_finalize_bits, table_compact, table_sort_collapse)
+        merge_finalize, table_compact, table_sort_collapse)
     from kmtricks_tpu_torch.runtime.device_pipeline import _load_global_batch
     from kmtricks_tpu_torch.runtime.kmdir import KmDir
     from kmtricks_tpu_torch.runtime.pipeline import PipelineOptions
@@ -936,8 +947,9 @@ def hash_full_size(fof_big, host_full, fof_e2e, eng_rd, S, MR, SE, dev,
     torch.cumsum(part_rows, 0, out=bounds[1:])
     two = torch.full((nsamp,), 2, dtype=torch.int64, device=dev)
     count_max = (1 << (8 * config.count_bytes)) - 1
-    fin = lambda: merge_finalize_bits(  # noqa: E731
-        pre, two, two, bounds, rmin=1, save_if=2, count_max=count_max)
+    fin = lambda: merge_finalize(  # noqa: E731
+        pre, two, two, bounds, rmin=1, save_if=2, count_max=count_max,
+        bits=True)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2073,6 +2085,193 @@ def reset(*counters) -> None:
             c[key] = 0
 
 
+def step_parity(fof_small, k, host_s) -> None:
+    """Phase 4 at ``k``: the port's one step on the phase-4 bank against
+    the host stages' run dir ``host_k<k>`` (``host_s`` its seconds)."""
+    port_rd = os.path.join(WORK, f"port_k{k}")
+    t1 = time.perf_counter()
+    port_run(fof_small, port_rd, k)
+    t2 = time.perf_counter()
+    files, nbytes = compare_run_dirs(os.path.join(WORK, f"host_k{k}"),
+                                     port_rd)
+    emit({"phase": "parity", "k": k, "files_identical": files,
+          "bytes": nbytes, "host_s": host_s, "port_s": t2 - t1})
+
+
+def engine_parity(fof_small, SE) -> None:
+    """Phase 7: the phase-4 bank through the engine in about ten chunks
+    at k = 31 and 21 (against phase 4's host dirs) and with ``--hist
+    --soft-min 0.5`` (the dense tail's raw-count fetch, histograms and
+    float quantile before the merge on the card)."""
+    small_mem = ["--max-memory", str(SMALL_MEM)]
+    for k, hist in ((31, False), (21, False), (31, True)):
+        tag = f"k{k}{'_hist' if hist else ''}"
+        # the host stages' files do not depend on --max-memory: the
+        # runs without histograms reuse phase 4's
+        host_rd = os.path.join(WORK, f"host_engine_{tag}" if hist
+                               else f"host_k{k}")
+        t0 = time.perf_counter()
+        if hist:
+            host_run(fof_small, host_rd, k, max_memory=SMALL_MEM,
+                     hist=True, soft_min="0.5")
+        t1 = time.perf_counter()
+        port_rd = os.path.join(WORK, f"port_engine_{tag}")
+        port_run(fof_small, port_rd, k, extra=small_mem + (
+            ["--hist", "--soft-min", "0.5"] if hist else []))
+        t2 = time.perf_counter()
+        stats = dict(SE.last_run)
+        if stats.get("chunks", 0) < 5:
+            raise AssertionError(f"engine took {stats} chunks")
+        files, nbytes = compare_run_dirs(
+            host_rd, port_rd, RUN_SUBS + (("histograms",) if hist
+                                          else ()))
+        emit({"phase": "engine_parity", "k": k, "hist_soft_min_0.5": hist,
+              "files_identical": files, "bytes": nbytes,
+              "chunks": stats["chunks"], "runs": stats["runs"],
+              "host_s": t1 - t0, "port_s": t2 - t1})
+
+
+def merge_tail_phase(dev, smi, rows: int = 6_000_000) -> None:
+    """Phase 20: the dense tails' merge on the card
+    (``parallel/pipeline.py::merge_finalize``) against the host's plain
+    numpy version (the per-sample hard-min and the count_max clamp, then
+    ``host/ops.py::merge_dense`` per partition), on a random 6,000,000 x
+    10 count matrix in four partitions (the size of ``count31.isolates``'s
+    tail) at 1-, 2- and 4-byte count types: final counts, keep flags and
+    every statistic equal. At 4 bytes: the device time of both forms
+    beside the bytes bound of the counts form, their extra device memory,
+    the host merge's seconds, and the copy of the final counts to the
+    host, pageable and through page-locked memory (``_to_host``)."""
+    from kmtricks_tpu_torch.host import ops as hops
+    from kmtricks_tpu_torch.parallel.pipeline import merge_finalize
+    from kmtricks_tpu_torch.runtime.device_pipeline import _to_host
+
+    nsamp, nparts, rmin, save_if = 10, 4, 2, 2
+    rng = np.random.default_rng(20)
+    pre = rng.integers(1, 8, (rows, nsamp), dtype=np.uint32)
+    big = rng.random((rows, nsamp)) < 0.01
+    pre[big] = rng.integers(0, 2**32, int(big.sum()), dtype=np.uint64)
+    pre[rng.random((rows, nsamp)) < 0.8] = 0
+    hard = rng.integers(0, 4, nsamp).astype(np.uint32)
+    amin = rng.integers(1, 6, nsamp).astype(np.uint64)
+    bounds = np.concatenate([[0], np.sort(rng.integers(0, rows, nparts - 1)),
+                             [rows]]).astype(np.int64)
+    pre_d = torch.from_numpy(pre.view(np.int32)).to(dev)
+    hard_d, bounds_d = (torch.from_numpy(a.astype(np.int64)).to(dev)
+                        for a in (hard, bounds))
+    out = {"phase": "merge_tail", "rows": rows, "samples": nsamp,
+           "partitions": nparts, "rmin": rmin, "save_if": save_if,
+           "host_s": {}, "gpu": smi}
+    for count_max in (255, 65535, 2**32 - 1):
+        amin_c = amin.copy()
+        amin_c[0] = count_max + 1          # never solid in sample 0
+        amin_d = torch.from_numpy(amin_c.astype(np.int64)).to(dev)
+        t0 = time.perf_counter()
+        pre_m = np.where(pre >= hard[None, :], np.minimum(pre, count_max),
+                         0)
+        exp = [hops.merge_dense(np.zeros(hi - lo, np.uint64), pre_m[lo:hi],
+                                amin_c, rmin, save_if)
+               for lo, hi in zip(bounds[:-1], bounds[1:])]
+        out["host_s"][str(count_max)] = time.perf_counter() - t0
+        del pre_m
+        fin = functools.partial(merge_finalize, pre_d, amin_d, hard_d,
+                                bounds_d, rmin=rmin, save_if=save_if,
+                                count_max=count_max)
+        counts, keep, stats = fin(bits=False)
+        counts, keep = counts.cpu().numpy().view(np.uint32), \
+            keep.cpu().numpy()
+        stats = stats.cpu().numpy()
+        for p, res in enumerate(exp):
+            lo, hi = int(bounds[p]), int(bounds[p + 1])
+            if not (np.array_equal(counts[lo:hi], res.counts)
+                    and np.array_equal(keep[lo:hi], res.keep)
+                    and all(np.array_equal(stats[i, p].astype(np.uint64),
+                                           getattr(res.stats, f.name))
+                            for i, f in enumerate(dataclasses.fields(
+                                res.stats)))):
+                raise AssertionError(f"merge_finalize differs from "
+                                     f"merge_dense: count_max {count_max},"
+                                     f" partition {p}")
+        del exp, counts, keep, stats
+    # the cells' count type: device time, memory and the copy to the host
+    for bits in (False, True):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = fin(bits=bits)
+        torch.cuda.synchronize()
+        form = "bits" if bits else "counts"
+        out[f"extra_device_bytes_{form}"] = (torch.cuda.max_memory_allocated()
+                                             - base)
+        del res
+        out[f"device_ms_{form}"] = device_ms(lambda: fin(bits=bits))
+    # pre read once (4 B a count), the final counts written once (4 B)
+    out["bound_ms_counts"] = rows * nsamp * 8 / HBM_BYTES_PER_S * 1e3
+    counts = fin(bits=False)[0]
+    for name, copy in (("pageable", lambda: counts.cpu().numpy()),
+                       ("pinned", lambda: _to_host(counts))):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            copy()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"copy_ms_{name}"] = times
+    out["copy_bytes"] = counts.numel() * 4
+    emit(out)
+    del counts, pre_d
+    torch.cuda.empty_cache()
+
+
+def no_jax() -> None:
+    """Raise if jax or the JAX package was imported."""
+    jax_mods = [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "kmtricks_tpu")]
+    if jax_mods:
+        raise AssertionError(f"jax or the JAX package was imported: "
+                             f"{jax_mods[:5]}")
+
+
+def tail_main() -> int:
+    """``--tail``: phases 1, 4, 7 and 20 alone (what the dense tail's
+    merge on the card runs through): the probe, the one step and the
+    engine on the phase-4 bank against the host stages (the engine also
+    with --hist --soft-min 0.5), and the merge against the host's."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available; this test needs a GPU")
+    sys.path.insert(0, ROOT)
+    from kmtricks_tpu_torch.runtime import stream_engine as SE
+    from scripts.gen_synth_bank import gen_bank
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "probe", "torch": torch.__version__,
+          "cuda": torch.version.cuda, "gpu": smi,
+          "device": torch.cuda.get_device_name(0)})
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    try:
+        fof_small = gen_bank(os.path.join(WORK, "bank_small"), nsamp=10,
+                             genome=200_000, coverage=8, read_len=1024)
+        host_s = host_runs({f"host_k{k}": dict(
+            fof=fof_small, run_dir=os.path.join(WORK, f"host_k{k}"), k=k)
+            for k in (31, 21)})
+        for k in (31, 21):
+            step_parity(fof_small, k, host_s[f"host_k{k}"])
+        engine_parity(fof_small, SE)
+        merge_tail_phase(torch.device("cuda"), smi)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    no_jax()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this test needs a GPU")
@@ -2186,15 +2385,7 @@ def main() -> int:
 
         # 4. byte parity with the host stages on a small bank
         for k in (31, 21):
-            host_s = host_refs[f"host_k{k}"].result()
-            port_rd = os.path.join(WORK, f"port_k{k}")
-            t1 = time.perf_counter()
-            port_run(fof_small, port_rd, k)
-            t2 = time.perf_counter()
-            files, nbytes = compare_run_dirs(os.path.join(WORK, f"host_k{k}"),
-                                             port_rd)
-            emit({"phase": "parity", "k": k, "files_identical": files,
-                  "bytes": nbytes, "host_s": host_s, "port_s": t2 - t1})
+            step_parity(fof_small, k, host_refs[f"host_k{k}"].result())
 
         # 5. full size through the CLI, counters reset just before
         host_rd = os.path.join(WORK, "host_full")
@@ -2281,32 +2472,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # 7. engine parity on the phase-4 bank, about ten chunks
-        small_mem = ["--max-memory", str(SMALL_MEM)]
-        for k, hist in ((31, False), (21, False), (31, True)):
-            tag = f"k{k}{'_hist' if hist else ''}"
-            # the host stages' files do not depend on --max-memory: the
-            # runs without histograms reuse phase 4's
-            host_rd = os.path.join(WORK, f"host_engine_{tag}" if hist
-                                   else f"host_k{k}")
-            t0 = time.perf_counter()
-            if hist:
-                host_run(fof_small, host_rd, k, max_memory=SMALL_MEM,
-                         hist=True, soft_min="0.5")
-            t1 = time.perf_counter()
-            port_rd = os.path.join(WORK, f"port_engine_{tag}")
-            port_run(fof_small, port_rd, k, extra=small_mem + (
-                ["--hist", "--soft-min", "0.5"] if hist else []))
-            t2 = time.perf_counter()
-            stats = dict(SE.last_run)
-            if stats.get("chunks", 0) < 5:
-                raise AssertionError(f"engine took {stats} chunks")
-            files, nbytes = compare_run_dirs(
-                host_rd, port_rd, RUN_SUBS + (("histograms",) if hist
-                                              else ()))
-            emit({"phase": "engine_parity", "k": k, "hist_soft_min_0.5": hist,
-                  "files_identical": files, "bytes": nbytes,
-                  "chunks": stats["chunks"], "runs": stats["runs"],
-                  "host_s": t1 - t0, "port_s": t2 - t1})
+        engine_parity(fof_small, SE)
 
         # 8. the engine at full size through the CLI, counters reset
         # just before
@@ -2414,15 +2580,14 @@ def main() -> int:
         # 19. the engine over two processes
         mp_launches = multiprocess_phase(fof_small, fof_e2e, eng_rd, S, MR,
                                          smi)
+
+        # 20. the dense tails' merge on the card against the host's
+        merge_tail_phase(dev, smi)
     finally:
         host_pool.shutdown(cancel_futures=True)
         shutil.rmtree(WORK, ignore_errors=True)
 
-    jax_mods = [m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "kmtricks_tpu")]
-    if jax_mods:
-        raise AssertionError(f"jax or the JAX package was imported: "
-                             f"{jax_mods[:5]}")
+    no_jax()
     src = "kmtricks_tpu_torch/csrc/segscan.cu"
     msrc = "kmtricks_tpu_torch/csrc/merge_runs.cu"
     # launches on each path that runs the kernel: phase 5 or 8, then 10
@@ -2548,4 +2713,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tail_main() if sys.argv[1:] == ["--tail"] else main())

@@ -23,9 +23,10 @@ mode, k <= 128), as plain functions on tensors:
 * the streaming engine's steps: :func:`build_chunk_pairs_step` (one
   chunk -> one sorted pair run per shard), the fold (``build_table_merge``, here
   ``ops/table.py::merge_pair_streams``), phase A
-  :func:`table_sort_collapse`, phase B :func:`table_compact`, and the pa
-  finalize :func:`merge_finalize_bits` (``build_merge_finalize_bits``),
-  each run per shard by the engine.
+  :func:`table_sort_collapse`, phase B :func:`table_compact`, and the
+  merge :func:`merge_finalize` (``build_merge_finalize_bits``, and the
+  host's ``merge_dense`` in the JAX package's dense tails), each run per
+  shard by the engine and the one step.
 
 Where the JAX package pads each destination to a fixed ``cap`` with
 sentinels for one ``all_to_all``, and counts what overflows, the port
@@ -43,7 +44,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from kmtricks_tpu_torch.ops.compact import compact_count_rows
+from kmtricks_tpu_torch.ops.compact import INT32_MAX, compact_count_rows
 from kmtricks_tpu_torch.ops.count_merge import (
     count_merge_keys, count_merge_packed, hash_key_bits, merge_routed,
     pack_words, packed_layout, part_of_sorted, sort_packed, stream_layout,
@@ -499,8 +500,8 @@ def table_compact(ws, cnt, *, layout: str, nsamp: int, hard_min: int,
     presence at the device ``hard_min``, dense compaction (:func:`~
     kmtricks_tpu_torch.ops.compact.compact_count_rows`) and the rows of
     each partition -> (rows, pre, part_rows, maxc, npres). Per-sample
-    hard-min refinement and count_max clamping happen on the host, or in
-    :func:`merge_finalize_bits`. ``window_bits``: hash layouts' window."""
+    hard-min refinement and count_max clamping happen in
+    :func:`merge_finalize`. ``window_bits``: hash layouts' window."""
     part_s, key_s, samp_s, present, row_head = _table_presence(
         layout, ws, cnt, nsamp, hard_min, window_bits)
     rows, pre, _nrows, maxc, npres = compact_count_rows(
@@ -509,58 +510,62 @@ def table_compact(ws, cnt, *, layout: str, nsamp: int, hard_min: int,
             npres)
 
 
-# elements of ``pre`` per merge_finalize_bits block: its int64 and mask
+# elements of ``pre`` per merge_finalize block: its int64 and mask
 # temporaries (about 40 B an element) stay near 0.7 GB however large the
 # table
 FINALIZE_BLOCK = 1 << 24
 
 
-def merge_finalize_bits(pre, amin, hard_min, bounds, *, rmin: int,
-                        save_if: int, count_max: int,
-                        block: int = FINALIZE_BLOCK):
-    """The merge for presence/absence outputs on the device (counterpart
-    of ``build_merge_finalize_bits``): merge.hpp:183-260 over the dense
-    pre-merge counts of phase B.
+def merge_finalize(pre, amin, hard_min, bounds, *, rmin: int, save_if: int,
+                   count_max: int, bits: bool, block: int = FINALIZE_BLOCK):
+    """The merge on the device (counterpart of ``build_merge_finalize_bits``
+    and of the host's ``merge_dense`` over the hard-min'd, saturated
+    counts): merge.hpp:183-260 over dense pre-merge counts.
 
     ``pre`` (rows, nsamp) int32 holding u32 raw counts (0 = absent);
     ``amin`` and ``hard_min`` (nsamp,) int64 soft-min and per-sample
     hard-min; ``bounds`` (nb_parts + 1,) int64 row offsets of the
     partitions (rows are sorted by partition). A count is present at
-    ``max(hard_min, 1)``, saturates at ``count_max``, is solid at ``amin``;
-    a row is kept when solid in ``rmin`` samples, and a present non-solid
-    count is rescued when its row is solid in ``save_if`` > 0 samples.
+    ``max(hard_min, 1)``, saturates at ``count_max``, is solid at ``amin``
+    (compared with the saturated count, as the host merge does); a row is
+    kept when solid in ``rmin`` samples, and a present non-solid count is
+    rescued when its row is solid in ``save_if`` > 0 samples.
 
-    Returns (packed (rows, ceil(nsamp / 8)) uint8 pa bits of solid or
+    Returns (out, keep (rows,) bool, stats (6, nb_parts, nsamp) int64:
+    NON_SOLID, RESCUED, UNIQUE_WO_RESCUE, UNIQUE_W_RESCUE,
+    TOTAL_WO_RESCUE, TOTAL_W_RESCUE per partition and sample). ``out`` is,
+    with ``bits``, the (rows, ceil(nsamp / 8)) uint8 pa bits of solid or
     rescued counts, LSB first per byte as ``io/formats.py::pack_pa_bits``;
-    keep (rows,) bool; stats (6, nb_parts, nsamp) int64: NON_SOLID,
-    RESCUED, UNIQUE_WO_RESCUE, UNIQUE_W_RESCUE, TOTAL_WO_RESCUE,
-    TOTAL_W_RESCUE per partition and sample). The statistics are exact
-    int64 segment sums; the JAX package's u32 byte planes, which keep
-    TPU sums below 2^32, are not needed. The rows go in blocks of about
-    ``block`` counts, each adding its share of every partition's sums,
-    so the temporaries do not grow with the table."""
+    else the final counts, the saturated count where solid or rescued and
+    0 elsewhere, as (rows, nsamp) int32 holding u32 (the host reads them
+    with ``.view(np.uint32)``). The statistics are exact int64 segment
+    sums; the JAX package's u32 byte planes, which keep TPU sums below
+    2^32, are not needed. The rows go in blocks of about ``block`` counts,
+    each adding its share of every partition's sums, so the temporaries
+    do not grow with the table."""
     rows, nsamp = pre.shape
     dev = pre.device
-    packed = torch.empty((rows, (nsamp + 7) // 8), dtype=torch.uint8,
-                         device=dev)
+    out = (torch.empty((rows, (nsamp + 7) // 8), dtype=torch.uint8,
+                       device=dev) if bits else
+           torch.empty((rows, nsamp), dtype=torch.int32, device=dev))
     keep = torch.empty(rows, dtype=torch.bool, device=dev)
     stats = torch.zeros((6, bounds.numel() - 1, nsamp), dtype=torch.int64,
                         device=dev)
     step = max(1, block // max(nsamp, 1))
     for lo in range(0, rows, step):
         hi = min(rows, lo + step)
-        packed[lo:hi], keep[lo:hi], part = _finalize_block(
+        out[lo:hi], keep[lo:hi], part = _finalize_block(
             pre[lo:hi], amin, hard_min, bounds.clamp(lo, hi) - lo,
-            rmin=rmin, save_if=save_if, count_max=count_max)
+            rmin=rmin, save_if=save_if, count_max=count_max, bits=bits)
         stats += part
-    return packed, keep, stats
+    return out, keep, stats
 
 
 def _finalize_block(pre, amin, hard_min, bounds, *, rmin: int, save_if: int,
-                    count_max: int):
-    """:func:`merge_finalize_bits` over one block of rows; ``bounds`` are
-    the partitions' offsets clamped to the block, so a partition outside
-    it sums to 0."""
+                    count_max: int, bits: bool):
+    """:func:`merge_finalize` over one block of rows; ``bounds`` are the
+    partitions' offsets clamped to the block, so a partition outside it
+    sums to 0."""
     rows, nsamp = pre.shape
     c = pre.to(torch.int64) & 0xFFFFFFFF
     present = c >= hard_min.clamp(min=1)
@@ -574,13 +579,8 @@ def _finalize_block(pre, amin, hard_min, bounds, *, rmin: int, save_if: int,
     else:
         rescued = torch.zeros_like(solid)
     final = solid | rescued
-    nb8 = (nsamp + 7) // 8
-    bits = torch.zeros((rows, nb8 * 8), dtype=torch.uint8, device=pre.device)
-    bits[:, :nsamp] = final
-    weights = 1 << torch.arange(8, dtype=torch.uint8, device=pre.device)
-    packed = (bits.view(rows, nb8, 8) * weights).sum(dim=2,
-                                                     dtype=torch.uint8)
-    del bits
+    counts = sat * final
+    out = _pack_bits(final) if bits else _as_u32_bits(counts)
 
     # flat offsets of each partition's bounds in each sample's column
     at = (torch.arange(nsamp, device=pre.device)[:, None] * rows
@@ -599,5 +599,21 @@ def _finalize_block(pre, amin, hard_min, bounds, *, rmin: int, save_if: int,
 
     stats = torch.stack([
         seg(present & ~solid), seg(rescued), seg(solid), seg(final),
-        seg(sat * solid), seg(sat * final)])
-    return packed, keep, stats
+        seg(sat * solid), seg(counts)])
+    return out, keep, stats
+
+
+def _pack_bits(mask):
+    """(rows, nsamp) bool -> (rows, ceil(nsamp / 8)) uint8, LSB first per
+    byte (``io/formats.py::pack_pa_bits``)."""
+    rows, nsamp = mask.shape
+    nb8 = (nsamp + 7) // 8
+    bits = torch.zeros((rows, nb8 * 8), dtype=torch.uint8, device=mask.device)
+    bits[:, :nsamp] = mask
+    weights = 1 << torch.arange(8, dtype=torch.uint8, device=mask.device)
+    return (bits.view(rows, nb8, 8) * weights).sum(dim=2, dtype=torch.uint8)
+
+
+def _as_u32_bits(vals):
+    """int64 values in [0, 2^32) -> int32 holding their u32 bit pattern."""
+    return torch.where(vals > INT32_MAX, vals - 2**32, vals).to(torch.int32)

@@ -7,16 +7,17 @@ Counterpart of ``kmtricks_tpu/runtime/device_pipeline.py``:
   hash keys): all samples' reads form one (B, L) batch, its rows split
   over the mesh's shards, and the sharded step
   (:func:`~kmtricks_tpu_torch.parallel.pipeline.build_sharded_pipeline`)
-  counts and merges them into dense rows on each shard; the host rebuilds
-  rescue/keep/statistics per partition (``host/ops.py::merge_dense``) and
-  each partition's owner writes it with the writers of
-  :mod:`kmtricks_tpu_torch.runtime.pipeline`, so the run directory is
-  byte-identical;
+  counts and merges them into dense rows on each shard; each partition's
+  rows are merged on their shard's device (rescue, keep and statistics:
+  :func:`device_merge_write_partition`) and written by the host with the
+  writers of :mod:`kmtricks_tpu_torch.runtime.pipeline`, so the run
+  directory is byte-identical;
 * :func:`stage_mesh_chunked` (``stage_mesh_chunked``): the path for sort
   layouts no packed word takes (``stream_layout`` None): each chunk runs
   the sharded step as a pure counter and the host aggregates the counts
   across chunks in exact uint64 before the hard-mins, histograms,
-  soft-min and merges;
+  soft-min and merges (``host/ops.py::merge_dense``,
+  :func:`merge_write_partition`);
 * the streaming engine's host side (numpy): :func:`stream_row_chunks`
   over :func:`_stream_sample_blocks`, :func:`prefetched`,
   :func:`chunk_source`, and the routing predicates. They are duplicated,
@@ -45,7 +46,7 @@ from kmtricks_tpu_torch.io import sequences as seqio
 from kmtricks_tpu_torch.ops.encode import device_key_words
 from kmtricks_tpu_torch.parallel import multihost as mh
 from kmtricks_tpu_torch.parallel.pipeline import (
-    build_sharded_pipeline, partition_to_device, rank_world)
+    build_sharded_pipeline, merge_finalize, partition_to_device, rank_world)
 from kmtricks_tpu_torch.runtime import trace
 
 log = logging.getLogger("kmtricks_tpu")
@@ -460,8 +461,9 @@ def _one_process(mesh, what: str) -> None:
 def merge_write_partition(kmdir, config, opts, p: int, keys, pre,
                           amin_vec, device) -> None:
     """Merge partition ``p``'s dense rows (``keys`` and their pre-merge
-    counts ``pre``) on the host and write its outputs; ``device`` is the
-    owner shard's (it transposes bft windows)."""
+    counts ``pre``, hard-min'd and saturated) on the host and write its
+    outputs; ``device`` is the owner shard's (it transposes bft windows).
+    The chunked path's tail, whose counts are host sums."""
     from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
 
     with trace.span("tail.merge", len(pre)):
@@ -469,6 +471,57 @@ def merge_write_partition(kmdir, config, opts, p: int, keys, pre,
                                opts.share_min)
     with trace.span("tail.write", len(pre)):
         write_merge_outputs(kmdir, config, opts, p, res, device)
+
+
+def merge_inputs(dev, amin_vec, hard_mins, offsets) -> tuple:
+    """The soft-min, the per-sample hard-mins and a shard's partition row
+    offsets as int64 tensors on its device ``dev``: the ``amin``,
+    ``hard_min`` and ``bounds`` of
+    :func:`~kmtricks_tpu_torch.parallel.pipeline.merge_finalize`."""
+    return tuple(torch.from_numpy(np.asarray(a, dtype=np.int64)).to(dev)
+                 for a in (amin_vec, hard_mins, offsets))
+
+
+def device_merge_write_partition(kmdir, config, opts, p: int, keys, pre,
+                                 bounds, amin, hard_min,
+                                 count_max: int) -> None:
+    """Merge partition ``p``'s dense rows on their device and write its
+    outputs: ``keys`` on the host; ``pre`` the partition's (rows, nsamp)
+    int32 raw u32 counts on the owner shard's device, ``bounds`` its
+    (2,) int64 row offsets there (0 and its rows), ``amin`` and
+    ``hard_min`` (nsamp,) int64 on that device. The merge
+    (:func:`~kmtricks_tpu_torch.parallel.pipeline.merge_finalize`: the
+    per-sample hard-min, count_max saturation, solid, rescue, keep and the
+    statistics) runs on the device, and only the final counts, keep flags
+    and statistics cross to the host for the writers. Inside ``tail.merge``
+    the span ``tail.merge.device`` holds the merge's launches; the copies
+    after it wait for the device."""
+    from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
+
+    n = int(pre.shape[0])
+    with trace.span("tail.merge", n):
+        with trace.span("tail.merge.device", n):
+            counts, keep, stats = merge_finalize(
+                pre, amin, hard_min, bounds, rmin=opts.recurrence_min,
+                save_if=opts.share_min, count_max=count_max, bits=False)
+        res = hops.MergeResult(
+            keys=keys, counts=_to_host(counts).view(np.uint32),
+            keep=_to_host(keep),
+            stats=hops.MergeStats(*stats[:, 0].cpu().numpy().astype(
+                np.uint64)))
+    with trace.span("tail.write", n):
+        write_merge_outputs(kmdir, config, opts, p, res, pre.device)
+
+
+def _to_host(t) -> np.ndarray:
+    """A tensor on the host as numpy: through page-locked memory from a
+    card (a pageable copy of a partition's counts runs at a fraction of
+    the link's rate), as it is on the CPU."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out.numpy()
 
 
 def stage_mesh_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
@@ -503,20 +556,23 @@ def stage_mesh_count_merge(kmdir, config, opts, repart, amin_vec: np.ndarray,
     for d, (rows, pre, nrows, _maxc, _npres) in enumerate(step(*args[:5])):
         with trace.span("tail.fetch") as fetch:
             keys = fetch_row_keys(rows, cf)
-            pre = pre.cpu().numpy().view(np.uint32)
             # rows are sorted by (partition, key): partition blocks are
             # contiguous
             part = rows[:, -1].cpu().numpy()
             bounds = np.searchsorted(part,
                                      np.arange(config.nb_partitions + 1))
-            fetch.n = keys.nbytes + pre.nbytes + part.nbytes
+            fetch.n = keys.nbytes + part.nbytes
         if int(bounds[-1]) != nrows:
             raise RuntimeError(f"row partitions out of range: "
                                f"{int(bounds[-1])} of {nrows} rows")
-        for p in np.flatnonzero(part_dev == d):
-            sl = slice(int(bounds[p]), int(bounds[p + 1]))
-            merge_write_partition(kmdir, config, opts, int(p), keys[sl],
-                                  pre[sl], amin_vec, mesh[d])
+        # the step applied the hard-mins and count_max: present at 1
+        amin, ones, offsets = merge_inputs(mesh[d], amin_vec,
+                                           np.ones(nsamp), bounds)
+        for p in map(int, np.flatnonzero(part_dev == d)):
+            lo, hi = int(bounds[p]), int(bounds[p + 1])
+            device_merge_write_partition(
+                kmdir, config, opts, p, keys[lo:hi], pre[lo:hi],
+                offsets[p:p + 2] - lo, amin, ones, count_max)
 
 
 def stage_mesh_chunked(kmdir, config, opts, repart, amin_vec, *, mesh,

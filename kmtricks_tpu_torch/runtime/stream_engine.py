@@ -14,23 +14,22 @@ pairs per shard (each receiver merges its routed runs with K3/K4 first).
 Each shard keeps its own table: its runs fold into one whenever their
 entries pass the table budget (per shard); then phase A merges a shard's
 runs (kernel K4) and collapses duplicates, phase B compacts its table to
-dense rows, and the host tail fetches the shards in owner order, applies
-the per-sample hard-min, writes histograms, resolves a float soft-min and
-merges and writes each partition with the port's copy of the JAX
-package's host code, so the run directory is byte-identical.
-``pa:bin`` outputs (no plugin, no histograms, the soft-min resolved) take
-the pa-bits tail instead: the merge runs on each shard's device
-(``merge_finalize_bits``) and only packed bits, keep flags and
-statistics cross to the host.
+dense rows, and the tail merges each partition on its owner shard's
+device (``merge_finalize``: per-sample hard-min, count_max saturation,
+solid, rescue, keep and statistics). The dense tail copies each
+partition's final counts, keep flags and statistics to the host, which
+writes them with the port's copy of the JAX package's writers, so the
+run directory is byte-identical. ``pa:bin`` outputs (no plugin, no
+histograms, the soft-min resolved) take the pa-bits tail instead: the
+merge hands out packed bits, one call per shard.
 
 Feature handling, as in the JAX engine:
-- per-sample hard-min (fof ``! amin``): the device applies the minimum
-  hard-min (1 when histograms are wanted); the host refines per sample
-  on the fetched raw counts;
+- per-sample hard-min (fof ``! amin``): phase B applies the minimum
+  hard-min (1 when histograms are wanted); the merge refines per sample;
 - histograms and the float soft-min: the table holds counts from hard-min
-  1, so the host builds the histograms from the fetched rows and
+  1, so the host fetches the raw counts, builds the histograms and
   resolves the quantile thresholds before the merges;
-- count_max saturation: clamped on the host after the hard-min.
+- count_max saturation: in the merge, after the hard-min.
 
 Every size is exact, so the JAX engine's pair caps, overflow re-runs,
 deferred folds, prologue quarters and compile-ahead machinery have no
@@ -52,14 +51,14 @@ from kmtricks_tpu_torch.ops.count_merge import _layout_words, stream_layout
 from kmtricks_tpu_torch.ops.table import merge_pair_streams
 from kmtricks_tpu_torch.parallel import multihost as mh
 from kmtricks_tpu_torch.parallel.pipeline import (
-    _each_shard, build_chunk_pairs_step, merge_finalize_bits,
+    _each_shard, build_chunk_pairs_step, merge_finalize,
     partition_to_device, rank_world, sync_mesh, table_compact,
     table_sort_collapse)
 from kmtricks_tpu_torch.runtime import trace
 from kmtricks_tpu_torch.runtime.device_pipeline import (
-    _is_float_quantile, _pow2ceil, chunk_source, fetch_row_keys,
-    hash_window_bits, host_tensors, merge_write_partition, prefetched,
-    striped_chunks)
+    _is_float_quantile, _pow2ceil, chunk_source,
+    device_merge_write_partition, fetch_row_keys, hash_window_bits,
+    host_tensors, merge_inputs, prefetched, striped_chunks)
 
 log = logging.getLogger("kmtricks_tpu")
 
@@ -252,15 +251,20 @@ def _fetch_shards(cf, shards, nb_parts):
     """Each shard's row keys and partition sizes on the host, joined in
     shard order, which is partition order (each shard owns a contiguous
     block of partitions, :func:`~kmtricks_tpu_torch.parallel.pipeline.
-    partition_to_device`): (keys, partition row bounds (nb_parts + 1,))."""
+    partition_to_device`): (keys, partition row bounds (nb_parts + 1,),
+    each shard's own row offsets of the partitions (nb_parts + 1,))."""
     keys = _cat([fetch_row_keys(rows, cf) for rows, _pre, _p in shards])
+    local = []
+    for _r, _pre, part_rows in shards:
+        off = np.zeros(nb_parts + 1, np.int64)
+        np.cumsum(part_rows.cpu().numpy(), out=off[1:])
+        local.append(off)
     bounds = np.zeros(nb_parts + 1, np.int64)
-    np.cumsum(sum(p.cpu().numpy() for _r, _pre, p in shards),
-              out=bounds[1:])
+    np.cumsum(sum(np.diff(off) for off in local), out=bounds[1:])
     if int(bounds[-1]) != keys.shape[0]:
         raise RuntimeError(f"partition sizes ({int(bounds[-1])} rows) "
                            f"disagree with the table ({keys.shape[0]})")
-    return keys, bounds
+    return keys, bounds, local
 
 
 def _histograms(pre, k: int, mesh) -> list:
@@ -289,45 +293,51 @@ def _histograms(pre, k: int, mesh) -> list:
 
 def _fetch_merge_write(kmdir, config, opts, cf, mesh, shards, amin_vec,
                        hard_mins, count_max, want_hists) -> None:
-    """The engine's host tail (counterpart of ``_fetch_merge_write``,
+    """The engine's dense tail (counterpart of ``_fetch_merge_write``,
     ``_fetch_merge_write_pipelined`` and ``_fetch_merge_write_multiproc``):
-    one device-to-host copy of each local shard's row keys, counts and
-    partition sizes, in owner order; per-sample hard-min on the raw
-    counts, then count_max saturation; histograms (summed over the ranks;
-    rank 0 writes them under --hist); a float soft-min resolved from them
-    (rank 0 writes the thresholds file); then the merge and write of each
-    partition this process's shards own, fanned over the -t thread
-    pool."""
+    one device-to-host copy of each local shard's row keys and partition
+    sizes, in owner order; where histograms are wanted, the raw counts
+    too, for the histograms (summed over the ranks; rank 0 writes them
+    under --hist) and a float soft-min resolved from them (rank 0 writes
+    the thresholds file); then each partition this process's shards own
+    is merged on its shard's device and written
+    (:func:`~kmtricks_tpu_torch.runtime.device_pipeline.
+    device_merge_write_partition`), fanned over the -t thread pool."""
     rank = rank_world(mesh)[0]
     with trace.span("tail.fetch") as fetch:
-        keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
-        pre = _cat([p.cpu().numpy().view(np.uint32)
-                    for _r, p, _n in shards])
-        fetch.n = keys.nbytes + bounds.nbytes + pre.nbytes
-    with trace.span("tail.hard_min"):
+        keys, bounds, local = _fetch_shards(cf, shards,
+                                            config.nb_partitions)
+        fetch.n = keys.nbytes + bounds.nbytes
         if want_hists:
+            pre = _cat([p.cpu().numpy().view(np.uint32)
+                        for _r, p, _n in shards])
+            fetch.n += pre.nbytes
+    if want_hists:
+        with trace.span("tail.hists"):
             hists = _histograms(pre, config.kmer_size, mesh)
+            del pre
             if opts.hist and rank == 0:
                 for s, entry in enumerate(kmdir.fof):
                     F.write_hist_file(kmdir.get_hist_path(entry.id),
                                       hists[s])
-        if amin_vec is None:
-            # the float quantile (the engine resolves the other forms
-            # first)
-            amin_vec = np.asarray(compute_merge_thresholds(
-                hists, float(opts.soft_min),
-                kmdir.get_merge_th_path() if rank == 0 else None),
-                dtype=np.uint32)
-        # per-sample hard-min on RAW counts, then count-type saturation
-        # (count_processor.hpp:61-72 order); a row may end up all zero
-        pre_m = np.where(pre >= hard_mins[None, :],
-                         np.minimum(pre, count_max), 0)
+            if amin_vec is None:
+                # the float quantile (the engine resolves the other forms
+                # first)
+                amin_vec = np.asarray(compute_merge_thresholds(
+                    hists, float(opts.soft_min),
+                    kmdir.get_merge_th_path() if rank == 0 else None),
+                    dtype=np.uint32)
+    merge_args = [merge_inputs(p.device, amin_vec, hard_mins, local[d])
+                  for d, (_r, p, _n) in enumerate(shards)]
 
     def merge_write(job):
         p, d = job
-        sl = slice(int(bounds[p]), int(bounds[p + 1]))
-        merge_write_partition(kmdir, config, opts, p, keys[sl], pre_m[sl],
-                              amin_vec, mesh[d])
+        lo, hi = int(local[d][p]), int(local[d][p + 1])
+        amin, hard_min, offsets = merge_args[d]
+        device_merge_write_partition(
+            kmdir, config, opts, p, keys[int(bounds[p]):int(bounds[p + 1])],
+            shards[d][1][lo:hi], offsets[p:p + 2] - lo, amin, hard_min,
+            count_max)
 
     nthreads = max(1, getattr(opts, "threads", 1) or 1)
     with trace.span("tail.merge_write"), \
@@ -342,29 +352,23 @@ def _fetch_merge_write_pa_bits(kmdir, config, opts, cf, mesh, shards,
     """The presence/absence tail (counterpart of
     ``_fetch_merge_write_pa_bits`` and ``_pa_write_multiproc``): the merge
     runs on each local shard's device (:func:`~kmtricks_tpu_torch.parallel.
-    pipeline.merge_finalize_bits`), and only the row keys, packed pa bits,
-    keep flags and per-partition statistics are copied to the host, shard
-    by shard in owner order; the host writes the pa matrix and merge_info
-    of each partition this process's shards own, its statistics from its
-    owner shard."""
+    pipeline.merge_finalize` in its bits form), and only the row keys,
+    packed pa bits, keep flags and per-partition statistics are copied to
+    the host, shard by shard in owner order; the host writes the pa matrix
+    and merge_info of each partition this process's shards own, its
+    statistics from its owner shard."""
     nsamp = len(kmdir.fof)
     with trace.span("tail.fetch") as fetch:
-        keys, bounds = _fetch_shards(cf, shards, config.nb_partitions)
+        keys, bounds, local = _fetch_shards(cf, shards,
+                                            config.nb_partitions)
         fetch.n = keys.nbytes + bounds.nbytes
 
     def finalize(d):
-        _rows, pre, part_rows = shards[d]
-        dev = pre.device
-        b = torch.zeros(config.nb_partitions + 1, dtype=torch.int64,
-                        device=dev)
-        torch.cumsum(part_rows, 0, out=b[1:])
-        # the soft-min is compared with saturated counts as the host
-        # merge does (the JAX tail clamps it to count_max first)
-        packed, keep, stats = merge_finalize_bits(
-            pre, torch.from_numpy(amin_vec.astype(np.int64)).to(dev),
-            torch.from_numpy(hard_mins.astype(np.int64)).to(dev), b,
+        pre = shards[d][1]
+        packed, keep, stats = merge_finalize(
+            pre, *merge_inputs(pre.device, amin_vec, hard_mins, local[d]),
             rmin=opts.recurrence_min, save_if=opts.share_min,
-            count_max=count_max)
+            count_max=count_max, bits=True)
         return packed.cpu().numpy(), keep.cpu().numpy(), stats.cpu().numpy()
 
     fin = _each_shard(mesh, finalize)

@@ -18,7 +18,7 @@ import kmtricks_tpu.runtime.device_pipeline as jdp
 import kmtricks_tpu.runtime.pipeline as JP
 import kmtricks_tpu.runtime.stream_engine as jse
 from kmtricks_tpu.parallel.pipeline import build_merge_finalize_bits
-from kmtricks_tpu_torch.parallel.pipeline import merge_finalize_bits
+from kmtricks_tpu_torch.parallel.pipeline import merge_finalize
 from kmtricks_tpu.runtime.pipeline import PipelineOptions as JaxOptions
 from kmtricks_tpu.runtime.pipeline import run_pipeline as jax_run_pipeline
 from kmtricks_tpu_torch.runtime import pipeline as P
@@ -139,6 +139,13 @@ ENGINE_CASES = {
     "k45_static_repart_banks": dict(
         kw=dict(kmer_size=45, hard_min=1, soft_min="1", max_memory_mb=1,
                 static_repart=True), stream=True),
+    # the dense tail's histogram branch (raw counts fetched for the
+    # histograms and the quantile, then the device merge) with per-sample
+    # hard-mins, over two shards
+    "k31_banks_hist_soft_min_float_amin_two_shards": dict(
+        kw=dict(kmer_size=31, hard_min=1, soft_min="0.5", share_min=1,
+                max_memory_mb=1, hist=True), amin=True, stream=True,
+        engine=dict(devices=["cpu", "cpu"])),
     "k31_static_repart_banks": dict(
         kw=dict(kmer_size=31, hard_min=2, soft_min="1", max_memory_mb=1,
                 static_repart=True), stream=True),
@@ -232,23 +239,23 @@ def test_merge_finalize_bits_matches_jax(count_bytes, save_if):
     tot_rs = sum(planes[4 + cb + i] << np.uint64(8 * i) for i in range(cb))
     exp_stats = np.stack(list(planes[:4]) + [tot_wo, tot_wo + tot_rs])
 
-    packed, keep, stats = merge_finalize_bits(
+    packed, keep, stats = merge_finalize(
         torch.from_numpy(pre.view(np.int32)),
         torch.from_numpy(amin.astype(np.int64)),
         torch.from_numpy(hmv.astype(np.int64)),
         torch.from_numpy(bounds.astype(np.int64)), rmin=rmin,
-        save_if=save_if, count_max=count_max)
+        save_if=save_if, count_max=count_max, bits=True)
     np.testing.assert_array_equal(packed.numpy(), np.asarray(packed_j))
     np.testing.assert_array_equal(keep.numpy(), np.asarray(keep_j) > 0)
     np.testing.assert_array_equal(stats.numpy().astype(np.uint64),
                                   exp_stats)
     # in blocks of 63 rows, across the partitions' bounds
-    blocked = merge_finalize_bits(
+    blocked = merge_finalize(
         torch.from_numpy(pre.view(np.int32)),
         torch.from_numpy(amin.astype(np.int64)),
         torch.from_numpy(hmv.astype(np.int64)),
         torch.from_numpy(bounds.astype(np.int64)), rmin=rmin,
-        save_if=save_if, count_max=count_max, block=63 * nsamp)
+        save_if=save_if, count_max=count_max, bits=True, block=63 * nsamp)
     for x, y in zip(blocked, (packed, keep, stats)):
         assert torch.equal(x, y)
     assert keep.any() and not keep.all() and (stats[1].sum() > 0) == (

@@ -1,7 +1,8 @@
 """The port's spans (``runtime/trace.py``): the record's
 nesting, threads, reset and freeze; the spans of a whole CPU run through
 the streaming engine and the one step against the engine's ``last_run``
-and walls; ``record_function`` only under an active profiler, and the
+and walls, and the device merge's span absent from the chunked path and
+the host stages; ``record_function`` only under an active profiler, and the
 spans in a CPU profiler trace on the main thread; and the prefetch
 worker's exit when its consumer abandons the stream."""
 
@@ -104,14 +105,18 @@ RUNS = {
                      ("engine.chunk_loop", "engine.decode",
                       "engine.decode_wait", "engine.chunk_step",
                       "engine.fold", "engine.phase_a", "engine.phase_b",
-                      "engine.tail", "tail.fetch", "tail.hard_min",
-                      "tail.merge_write"), ("step.load", "hash.window")),
+                      "engine.tail", "tail.fetch", "tail.merge_write"),
+                     ("step.load", "hash.window", "tail.hists")),
     "engine_hash_bft": (dict(max_memory_mb=1, mode="hash:bft:bin",
                              bloom_size=1_000_000),
                         ("engine.chunk_step", "hash.window", "tail.fetch"),
-                        ("step.load",)),
+                        ("step.load", "tail.hists")),
+    "engine_hists_soft_min_float": (
+        dict(max_memory_mb=1, hist=True, soft_min="0.5"),
+        ("engine.chunk_loop", "engine.tail", "tail.fetch", "tail.hists",
+         "tail.merge_write"), ("step.load",)),
     "one_step": (dict(), ("step.load", "tail.fetch"),
-                 ("engine.chunk_loop", "engine.decode_wait")),
+                 ("engine.chunk_loop", "engine.decode_wait", "tail.hists")),
 }
 REPART = ("repart.parse", "repart.pack", "repart.upload",
           "repart.tally_wait", "repart.tally_step", "repart.place",
@@ -121,9 +126,11 @@ REPART = ("repart.parse", "repart.pack", "repart.upload",
 @pytest.mark.parametrize("case", sorted(RUNS))
 def test_pipeline_spans_match_the_run(tmp_path, case, counting_rf, caplog):
     """Spans of a whole CPU run: each chunk one ``engine.chunk_step``,
-    each partition one ``tail.merge`` and ``tail.write``, the engine's
-    walls its phase spans, and each span family inside the wall that
-    encloses it; no ``record_function`` without a profiler."""
+    each partition one ``tail.merge`` and ``tail.write``, every row merged
+    on the device (``tail.merge.device``, one call a partition, inside
+    ``tail.merge``), the engine's walls its phase spans, and each span
+    family inside the wall that encloses it; no ``record_function``
+    without a profiler."""
     kw, present, absent = RUNS[case]
     fof = write_fof(tmp_path / "c.fof")
     SE.last_run.clear()
@@ -133,12 +140,16 @@ def test_pipeline_spans_match_the_run(tmp_path, case, counting_rf, caplog):
                      device="cpu")
     rec = trace.last_run
     assert counting_rf.entered == 0
-    for name in present + REPART + ("tail.merge", "tail.write"):
+    for name in present + REPART + ("tail.merge", "tail.write",
+                                    "tail.merge.device"):
         assert rec[name]["calls"] >= 1, name
     for name in absent:
         assert name not in rec, name
-    assert rec["tail.merge"]["calls"] == rec["tail.write"]["calls"] == 4
-    assert rec["tail.merge"]["n"] == rec["tail.write"]["n"] > 0
+    assert rec["tail.merge"]["calls"] == rec["tail.write"]["calls"] == \
+        rec["tail.merge.device"]["calls"] == 4
+    assert rec["tail.merge"]["n"] == rec["tail.write"]["n"] == \
+        rec["tail.merge.device"]["n"] > 0
+    assert rec["tail.merge.device"]["s"] <= rec["tail.merge"]["s"]
     assert rec["tail.fetch"]["n"] > 0
     assert rec["repart.tally_step"]["calls"] == \
         rec["repart.upload"]["calls"] == rec["repart.pack"]["calls"]
@@ -162,7 +173,7 @@ def test_pipeline_spans_match_the_run(tmp_path, case, counting_rf, caplog):
                                           "n": 0}
     assert rec["engine.decode_wait"]["s"] + rec["engine.chunk_step"]["s"] \
         + rec["engine.fold"]["s"] <= walls["chunk_loop"]
-    assert rec["tail.fetch"]["s"] + rec["tail.hard_min"]["s"] \
+    assert rec["tail.fetch"]["s"] + rec.get("tail.hists", {"s": 0})["s"] \
         + rec["tail.merge_write"]["s"] <= walls["tail"]
     # the pool's threads run the merges and writes inside its wall
     assert rec["tail.merge"]["s"] + rec["tail.write"]["s"] \
@@ -171,6 +182,41 @@ def test_pipeline_spans_match_the_run(tmp_path, case, counting_rf, caplog):
         assert rec["hash.window"]["calls"] == last["chunks"]
         assert rec["hash.window"]["n"] > 0
         assert rec["hash.window"]["s"] <= rec["engine.chunk_step"]["s"]
+
+
+# the paths whose merge stays on the host: the chunked path (a sort
+# layout no packed word takes) and the host stages
+HOST_MERGES = {
+    "chunked": dict(mode="hash:count:bin", bloom_size=2**62,
+                    max_memory_mb=1),
+    "host": dict(backend="host"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HOST_MERGES))
+def test_host_merge_paths_record_no_device_merge(tmp_path, case,
+                                                 monkeypatch):
+    """The chunked path merges each partition on the host (one
+    ``tail.merge`` a partition, no ``tail.merge.device``); the host
+    stages open neither."""
+    from kmtricks_tpu_torch.runtime import pipeline as P
+
+    seen = []
+    real = P.stage_mesh_chunked
+    monkeypatch.setattr(P, "stage_mesh_chunked",
+                        lambda *a, **k: (seen.append(1), real(*a, **k))[1])
+    fof = write_fof(tmp_path / "c.fof")
+    run_pipeline(PipelineOptions(fof=fof, run_dir=str(tmp_path / "rd"),
+                                 kmer_size=31, nb_partitions=4,
+                                 **HOST_MERGES[case]), device="cpu")
+    rec = trace.last_run
+    assert "tail.merge.device" not in rec
+    if case == "chunked":
+        assert seen == [1]
+        assert rec["tail.merge"]["calls"] == rec["tail.write"]["calls"] == 4
+        assert rec["tail.merge"]["n"] > 0
+    else:
+        assert not seen and "tail.merge" not in rec
 
 
 def test_record_function_only_under_a_profiler(counting_rf):
