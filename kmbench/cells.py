@@ -5,20 +5,25 @@ traffic mix and any options of its own); a configuration is
 ``kmbench/configs/<name>.json`` (the ``pipeline`` options of a
 deployment, with its source, what was assumed and what was reduced); a
 traffic mix is ``kmbench/traffic/<name>.json`` (the read collection's
-parameters, see :mod:`kmbench.gen`); a per-layer metric is a reader
-``kmbench/metrics/<name>.py``, which also names the spans it reads.
+parameters and file format, see :mod:`kmbench.gen`); a per-layer metric is
+a reader ``kmbench/metrics/<name>.py``, which also names the spans it
+reads. A configuration may name its own reference module (see
+:func:`reference`).
 ``BENCHMARK.json`` at the root of the checkout says which per-layer
 metrics each cell reports.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import os
+import re
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+REFERENCE = "kmbench.reference"
 
 
 def load(kind: str, name: str) -> dict:
@@ -50,6 +55,26 @@ def option(args: list[str], name: str, default: str) -> str:
         if a == name:
             value = args[i + 1]
     return value
+
+
+def reference(cell: dict):
+    """The reference module that judges ``cell``: the one its
+    configuration names under ``"reference"``, else :mod:`kmbench.reference`.
+    Raises ``ValueError`` on a name outside that package and on a module
+    that lacks one of :data:`kmbench.reference.INTERFACE`; an import error
+    of a module that is not there propagates."""
+    name = cell["config_spec"].get("reference", REFERENCE)
+    if not re.fullmatch(re.escape(REFERENCE) + r"(\.[A-Za-z_][A-Za-z0-9_]*)*",
+                        name):
+        raise ValueError(f"a configuration's reference is a module inside "
+                         f"{REFERENCE}, not {name!r}")
+    from kmbench.reference import INTERFACE
+
+    mod = importlib.import_module(name)
+    missing = [f for f in INTERFACE if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError(f"reference {name} lacks {', '.join(missing)}")
+    return mod
 
 
 def benchmark(root: str = ROOT) -> dict:

@@ -3,12 +3,13 @@ with one stated guarantee broken.
 
     python -m kmbench.control --workload <cell> --seeds <a,b,...>
 
-For each seed it writes the cell's collection, works out the outputs the
-reference gives with ``--hard-min 1`` (the configurations state 2, so
-k-mers seen once in a sample would pass) and its own greedy repartition
-table, and judges them with the same comparison a run's files get. Every
-number must come out above its limit of 0; the readings are printed one
-JSON line per seed.
+For each seed it writes the cell's collection, works out the outputs that
+the cell's reference (:func:`kmbench.cells.reference`) gives with its
+``control_options`` (for :mod:`kmbench.reference`, ``--hard-min 1`` where
+the configurations state 2, so k-mers seen once in a sample would pass) and
+its own greedy repartition table, and judges them with the same comparison
+a run's files get. One number must come out above its limit of 0; the
+readings are printed one JSON line per seed.
 """
 
 from __future__ import annotations
@@ -23,23 +24,22 @@ import time
 import torch
 
 from kmbench import cells
-from kmbench.reference import expected_outputs, judge, serialize, setup
 from kmbench.reference.kmers import lpt_table
 from kmbench.run import make_bank
 
 
-def control_checks(cell: dict, manifest: dict, device,
-                   broken_hard_min: int = 1) -> dict:
-    """The numbers compared when the reference with ``broken_hard_min``
-    stands in for the program."""
-    opts, coll = setup(cells.pipeline_args(cell), manifest["samples"],
-                       device)
+def control_checks(cell: dict, manifest: dict, device) -> dict:
+    """The numbers compared when the cell's reference with its control
+    options stands in for the program."""
+    ref = cells.reference(cell)
+    opts, coll = ref.setup(cells.pipeline_args(cell), manifest["samples"],
+                           device)
     nb = coll.nb_partitions(opts["max_memory"])
     table = lpt_table(coll.tally(), nb)
-    broken = dict(opts, hard_min=broken_hard_min)
-    files = serialize(expected_outputs(coll, table, nb, broken), table, nb,
-                      len(coll.paths))
-    return judge(files.get, coll, opts)
+    files = ref.serialize(ref.expected_outputs(coll, table, nb,
+                                               ref.control_options(opts)),
+                          table, nb, len(coll.paths))
+    return ref.judge(files.get, coll, opts)
 
 
 def main(argv=None) -> int:

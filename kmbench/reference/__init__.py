@@ -1,9 +1,16 @@
 """The comparison that decides a run's ``correct``.
 
-:func:`expected_outputs` works out, from the FASTA files alone (see
+:func:`expected_outputs` works out, from the sequence files alone (see
 :mod:`kmbench.reference.kmers`), what a run directory must hold; the
 ``judge_*`` functions read what the program wrote and count every
 difference. Each count's limit is 0.
+
+This module is the reference of every configuration that names none. A
+configuration that names another (its ``"reference"`` key, a module inside
+this package; see :func:`kmbench.cells.reference`) gets that module's
+:data:`INTERFACE` functions in place of these, and may import and reuse
+this module, :mod:`~kmbench.reference.kmers` and
+:mod:`~kmbench.reference.layout`.
 
 The repartition table is the one thing the reference cannot rebuild byte
 for byte: kmtricks sorts the sampled bins with an unstable sort and draws
@@ -25,6 +32,12 @@ import torch
 from kmbench.reference import layout
 from kmbench.reference.kmers import Collection, lpt_table, lpt_violations
 
+# what the harness calls of a reference module: the options check before
+# any work, the reading and judging of a run directory, and for the control
+# the options with one stated guarantee broken, the outputs they give and
+# their bytes
+INTERFACE = ("options", "setup", "read_file", "judge", "control_options",
+             "expected_outputs", "serialize")
 U32_MAX = (1 << 32) - 1
 REPART = "repartition/repartition.minimRepart"
 
@@ -81,6 +94,13 @@ def setup(args: list[str], samples: list[dict], device):
     opts = options(args)
     return opts, Collection([(s["id"], s["path"]) for s in samples],
                             opts["k"], opts["m"], device)
+
+
+def control_options(opts: dict) -> dict:
+    """The options of the control: the stated ``--hard-min`` (2 in every
+    configuration of this reference) broken to 1, so that k-mers seen once
+    in a sample pass."""
+    return dict(opts, hard_min=1)
 
 
 def read_file(root: str):

@@ -1,7 +1,8 @@
-"""Plain-torch reference of a kmtricks run, from the FASTA files on.
+"""Plain-torch reference of a kmtricks run, from the sequence files on.
 
-It reads the files the program reads and works out again, on any torch
-device and in blocks of reads: the sampled minimizer tally behind the
+It reads the files the program reads (FASTA or FASTQ, plain or gzip) and
+works out again, on any torch device and in blocks of reads: kmtricks'
+estimate of the collection's size, the sampled minimizer tally behind the
 repartition, each sample's canonical k-mer counts with the hard-min, the
 merged count matrix of every partition, and in hash mode each sample's
 window hashes and Bloom bits. It imports nothing of the program; the
@@ -9,6 +10,9 @@ conventions it needs are in :mod:`kmbench.reference.layout`.
 """
 
 from __future__ import annotations
+
+import gzip
+import os
 
 import numpy as np
 import torch
@@ -18,18 +22,49 @@ from kmbench.reference import layout
 READ_BLOCK = 1 << 18        # reads per block of window arithmetic
 
 
-def read_fasta(path: str, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+EST_RECORDS = 50_000        # GATB's estimate counts one record more
+EST_CHUNK = 256 * 1024      # and reads the inflated stream in these chunks
+
+
+def read_bytes(path: str) -> np.ndarray:
+    """A sequence file's bytes, inflated with Python's ``gzip`` where they
+    start with the gzip magic."""
+    raw = np.fromfile(path, dtype=np.uint8)
+    if raw[:2].tobytes() == b"\x1f\x8b":
+        raw = np.frombuffer(gzip.decompress(raw.tobytes()),
+                            dtype=np.uint8).copy()
+    return raw
+
+
+def read_reads(path: str, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`parse_reads` of :func:`read_bytes`."""
+    return parse_reads(read_bytes(path), device, path)
+
+
+def parse_reads(raw: np.ndarray, device="cpu",
+                name: str = "") -> tuple[torch.Tensor, torch.Tensor]:
     """(reads, max length) int8 codes (-1 for any other byte and for the
-    padding) and (reads,) int64 lengths of a FASTA file whose records hold
-    one sequence line each, parsed on ``device``."""
-    data = torch.from_numpy(np.fromfile(path, dtype=np.uint8)).to(device)
+    padding) and (reads,) int64 lengths of a sequence file's (inflated)
+    bytes, parsed on ``device``. The first byte says the format: ``@`` for
+    FASTQ whose records hold four lines, the third starting with ``+`` and
+    the fourth as long as the bases, else FASTA whose records hold one
+    sequence line each. Anything else is refused."""
+    data = torch.from_numpy(raw).to(device)
     nl = torch.nonzero(data == 10).squeeze(1)
     starts = torch.cat([nl.new_zeros(1), nl[:-1] + 1])
-    head = data[starts] == ord(">")
-    if len(starts) % 2 or not bool(head[0::2].all()) or \
-            bool(head[1::2].any()):
-        raise ValueError(f"{path}: not one sequence line per record")
-    s0, lengths = starts[1::2], nl[1::2] - starts[1::2]
+    first = data[starts]
+    lines = 4 if raw[:1].tobytes() == b"@" else 2
+    mark = ord("@" if lines == 4 else ">")
+    if len(starts) % lines or not bool((first[0::lines] == mark).all()) \
+            or bool((first[1::lines] == mark).any()):
+        raise ValueError(f"{name}: not one sequence line per FASTA record "
+                         f"nor four lines per FASTQ record")
+    s0, lengths = starts[1::lines], nl[1::lines] - starts[1::lines]
+    if lines == 4 and not (bool((first[2::4] == ord("+")).all()) and bool(
+            ((nl[3::4] - starts[3::4]) == lengths).all())):
+        raise ValueError(f"{name}: a FASTQ record's separator does not "
+                         f"start with '+' or its quality is not as long "
+                         f"as its bases")
     L = int(lengths.max()) if len(lengths) else 0
     pos = torch.arange(L, device=data.device)
     idx = (s0[:, None] + pos).clamp(max=data.shape[0] - 1)
@@ -37,6 +72,42 @@ def read_fasta(path: str, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
     codes = code[data[idx].long()]
     codes[pos[None, :] >= lengths[:, None]] = -1
     return codes, lengths
+
+
+def estimate(raw: np.ndarray, path: str) -> tuple[int, int]:
+    """GATB's estimate of one sequence file, by which kmtricks sizes a run
+    (its partition count, the reads its repartition samples): (sequences,
+    bases). It counts the first 50,001 records and their bases, reading
+    the inflated stream in chunks of 256 KiB, and stops on reading the
+    line that ends the next record (a FASTA record ends at the next
+    header, a FASTQ record at its sequence line) or at the end. Both
+    counts are scaled by the file's size over the bytes fetched, the bases
+    in float32; a file whose path holds its first "gz" at its very end
+    counts four times its size on disk (GATB assumes gzip inflates
+    fourfold). ``raw`` is the file's inflated bytes (:func:`read_bytes`)."""
+    lines = 4 if raw[:1].tobytes() == b"@" else 2
+    # the line whose reading yields record EST_RECORDS + 1 (0-based)
+    stop = lines * (EST_RECORDS + 2) if lines == 2 else \
+        lines * (EST_RECORDS + 1) + 1
+    n = EST_CHUNK * 64
+    while True:
+        nl = np.flatnonzero(raw[:n] == 10)
+        if len(nl) > stop or n >= len(raw):
+            break
+        n *= 2
+    starts = np.concatenate([[0], nl[:-1] + 1])
+    bases = (nl - starts)[1::lines][:EST_RECORDS + 1]
+    if len(nl) > stop:
+        fetched = min(-(-(int(nl[stop]) + 1) // EST_CHUNK) * EST_CHUNK,
+                      len(raw))
+    else:
+        fetched = len(raw)
+    size = os.path.getsize(path)
+    if path.find("gz") == len(path) - 2:
+        size *= 4
+    ratio = np.float32(np.float32(size) / np.float32(fetched))
+    return (len(bases) * size // fetched,
+            int(np.float32(int(bases.sum())) * ratio))
 
 
 def window_values(codes: torch.Tensor, w: int) -> torch.Tensor:
@@ -213,12 +284,15 @@ class Collection:
         self.device = torch.device(device)
         self.lut = torch.from_numpy(layout.masked_minimizer_lut(m)).to(
             self.device)
-        self._reads, self._counts, self._bins = {}, {}, None
+        self._reads, self._estimates = {}, {}
+        self._counts, self._bins = {}, None
 
     def reads(self, path: str) -> tuple[torch.Tensor, torch.Tensor]:
         """One sample's codes and lengths (parsed once)."""
         if path not in self._reads:
-            self._reads[path] = read_fasta(path, self.device)
+            raw = read_bytes(path)
+            self._reads[path] = parse_reads(raw, self.device, path)
+            self._estimates[path] = estimate(raw, path)
         return self._reads[path]
 
     def _blocks(self, path: str, max_reads: int | None = None):
@@ -228,27 +302,29 @@ class Collection:
         for i in range(0, codes.shape[0], READ_BLOCK):
             yield codes[i:i + READ_BLOCK]
 
-    def read_stats(self) -> tuple[int, int]:
-        """(reads, bases) of the whole collection."""
-        reads = bases = 0
+    def estimated(self) -> tuple[int, int]:
+        """(sequences, bases) of the whole collection as kmtricks
+        estimates them (:func:`estimate`, summed over the files)."""
+        seqs = bases = 0
         for p in self.paths:
-            _c, lengths = self.reads(p)
-            reads += len(lengths)
-            bases += int(lengths.sum())
-        return reads, bases
+            self.reads(p)           # parses and estimates the file once
+            seqs += self._estimates[p][0]
+            bases += self._estimates[p][1]
+        return seqs, bases
 
     def nb_partitions(self, max_memory_mb: int) -> int:
-        reads, bases = self.read_stats()
+        reads, bases = self.estimated()
         mean = max(bases // max(reads, 1), self.k)
         kmers = max(1, (mean - self.k + 1) * max(reads, 1))
         return layout.nb_partitions(kmers, self.k, max_memory_mb)
 
     def tally(self) -> np.ndarray:
         """The sampled kx-mer tally per minimizer over the first reads of
-        the collection: 5% of them, and at least a million."""
+        the collection: 5% of its estimated sequences, and at least a
+        million."""
         if self._bins is not None:
             return self._bins
-        reads, _bases = self.read_stats()
+        reads, _bases = self.estimated()
         left = max(int(0.05 * reads), 1_000_000)
         bins = torch.zeros(4 ** self.m, dtype=torch.int64,
                            device=self.device)

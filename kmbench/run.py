@@ -32,7 +32,7 @@ import sys
 import time
 
 from kmbench import cells
-from kmbench.gen import valid_windows
+from kmbench.gen import check_format, valid_windows
 from kmbench.memory import HostPeak, process_age_s
 from kmbench.window import rate, run_window
 
@@ -41,8 +41,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "kmtricks_tpu")
 # options.txt name the run's wall and directory)
 OUTPUTS = ("repartition", "minimizers", "matrices", "filters",
            "merge_infos", "fpr", "hash.info")
-CHECK_LIMITS = {"repart_bad": 0, "rows_bad": 0, "bloom_bytes_bad": 0,
-                "filter_bytes_bad": 0, "runs_differing": 0}
+# every number compared (a reference's ``judge`` and ``runs_differing``)
+# counts differences, so every limit is 0
+LIMIT = 0
 
 
 def log(msg: str) -> None:
@@ -123,11 +124,10 @@ def judge_runs(cell: dict, manifest: dict, run_dirs: list[str],
                device) -> dict:
     """Every number compared, from the last run directory against the
     reference and the others against the last."""
-    from kmbench.reference import judge, read_file, setup
-
-    opts, coll = setup(cells.pipeline_args(cell), manifest["samples"],
-                       device)
-    checks = judge(read_file(run_dirs[-1]), coll, opts)
+    ref = cells.reference(cell)
+    opts, coll = ref.setup(cells.pipeline_args(cell), manifest["samples"],
+                           device)
+    checks = ref.judge(ref.read_file(run_dirs[-1]), coll, opts)
     checks["runs_differing"] = sum(not same_outputs(d, run_dirs[-1])
                                    for d in run_dirs[:-1])
     return checks
@@ -139,10 +139,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     (its ``checks`` key last)."""
     import torch
 
-    from kmbench.reference import options
-
-    # a configuration the reference cannot judge fails before any work
-    options(cells.pipeline_args(cell))
+    # a configuration its reference cannot judge, or a format the generator
+    # does not write, fails before any work
+    cells.reference(cell).options(cells.pipeline_args(cell))
+    check_format(cell["traffic_spec"])
     parts = {}
     t = time.perf_counter()
     work = work_root(cell["name"])
@@ -253,7 +253,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     log(f"reference and comparison {time.perf_counter() - t:.3f} s")
     shutil.rmtree(work, ignore_errors=True)
 
-    bad = {n: v for n, v in checks.items() if v > CHECK_LIMITS[n]}
+    bad = {n: v for n, v in checks.items() if v > LIMIT}
     failed = int(win.error is not None) + checks.get("runs_differing", 0) \
         + int(any(n != "runs_differing" for n in bad))
     correct = not bad and win.error is None
@@ -283,7 +283,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         result["device"]["busy_s"] = profile.busy_s
         result["device"]["window_s"] = profile.window_s
         result["breakdown"] = profile.breakdown()
-    result["checks"] = {n: {"value": v, "limit": CHECK_LIMITS[n]}
+    result["checks"] = {n: {"value": v, "limit": LIMIT}
                         for n, v in checks.items()}
     return result
 

@@ -35,16 +35,28 @@ def tiny_traffic(tmp_path):
 @pytest.fixture
 def tiny_cell(tiny_traffic, tmp_path, monkeypatch):
     """A cell of a named configuration on the small collection, its
-    scratch under ``tmp_path``; ``args`` force the streaming engine."""
+    scratch under ``tmp_path``; ``args`` force the streaming engine;
+    ``fmt`` is the collection's file format and ``reference`` a reference
+    module for the configuration to name."""
+    import json
+
     from kmbench import cells
 
     monkeypatch.setenv("TMPDIR", str(tmp_path))
     path, traffic = tiny_traffic
 
     def make(name="count31.isolates", config="isolates-count-k31",
-             args=("--max-memory", "1")):
-        return {"name": name, "config": config,
-                "config_spec": cells.load("configs", config),
-                "traffic_path": path, "traffic_spec": traffic, "chips": 1,
+             args=("--max-memory", "1"), fmt="fasta", reference=None):
+        spec = cells.load("configs", config)
+        if reference is not None:
+            spec["reference"] = reference
+        t, p = traffic, path
+        if fmt != traffic["format"]:
+            t = dict(traffic, format=fmt)
+            p = str(tmp_path / f"tiny-{fmt}.json")
+            with open(p, "w") as f:
+                json.dump(t, f)
+        return {"name": name, "config": config, "config_spec": spec,
+                "traffic_path": p, "traffic_spec": t, "chips": 1,
                 "args": list(args)}
     return make

@@ -1,10 +1,15 @@
-"""The collection generator: determinism from the seed, shapes, and the
-valid-window count against a direct count."""
+"""The collection generator: determinism from the seed, shapes, the
+valid-window count against a direct count, and the file formats."""
 
-import numpy as np
+import gzip
+import hashlib
+import os
+
+import pytest
+import torch
 
 from kmbench.gen import make_bank, n_reads, valid_windows
-from kmbench.reference.kmers import read_fasta
+from kmbench.reference.kmers import read_reads
 
 
 def _bytes(manifest):
@@ -27,12 +32,70 @@ def test_shapes_and_valid_windows(tiny_traffic, tmp_path):
     assert [s["id"] for s in m["samples"]] == ["S0", "S1", "S2"]
     direct = 0
     for s in m["samples"]:
-        codes, lengths = read_fasta(s["path"])
+        codes, lengths = read_reads(s["path"])
         assert len(lengths) == n_reads(t) == 20 * 20000 // 150
         assert bool((lengths == 150).all()) and bool((codes >= 0).all())
         direct += sum(max(0, int(n) - 31 + 1) for n in lengths.tolist())
     assert valid_windows(m, 31) == direct
     assert valid_windows(m, 151) == 0
+
+
+# sha256 of each sample's file of the tiny traffic at seed 2**31 + 12345,
+# as the generator wrote them before it wrote any other format
+FASTA_SHA256 = [
+    "4b9300f0453a082965985f2cb77a061832139cf8f63be16965b4084d73434f91",
+    "a65d369025a7981e0f41315c3d14f9ca0d57abd948be39b7ac358a0ce0012d73",
+    "4e58af31023d6b3698b62ef897045d6b88ac652521cf528805f11929fdaa1d8d"]
+
+
+def test_fasta_bank_is_unchanged(tiny_traffic, tmp_path):
+    _p, t = tiny_traffic
+    m = make_bank(t, 2**31 + 12345, str(tmp_path / "a"))
+    assert [hashlib.sha256(b).hexdigest() for b in _bytes(m)] == FASTA_SHA256
+    assert [os.path.basename(s["path"]) for s in m["samples"]] == [
+        "S0.fasta", "S1.fasta", "S2.fasta"]
+    assert m["format"] == "fasta"
+    assert m["bytes"] == sum(s["bytes"] for s in m["samples"]) == 3 * 426560
+
+
+@pytest.mark.parametrize("fmt", ["fastq", "fasta.gz", "fastq.gz"])
+def test_formats_parse_as_the_fasta(tiny_traffic, tmp_path, fmt):
+    _p, t = tiny_traffic
+    seed = 2**31 + 12345
+    plain = make_bank(t, seed, str(tmp_path / "fasta"))
+    m = make_bank(dict(t, format=fmt), seed, str(tmp_path / "x"))
+    assert m["format"] == fmt
+    assert valid_windows(m, 31) == valid_windows(plain, 31)
+    for a, b in zip(plain["samples"], m["samples"]):
+        assert b["path"].endswith(f"{b['id']}.{fmt}")
+        assert b["bytes"] == os.path.getsize(b["path"])
+        ca, la = read_reads(a["path"])
+        cb, lb = read_reads(b["path"])
+        assert torch.equal(ca, cb) and torch.equal(la, lb)
+    raw = open(m["samples"][0]["path"], "rb").read()
+    if fmt.endswith(".gz"):
+        # gzip at its default level 6, with no time stamp, so that one
+        # seed gives the same bytes
+        inner = gzip.decompress(raw)
+        assert raw == gzip.compress(inner, compresslevel=6, mtime=0)
+        assert raw[4:8] == bytes(4)
+        raw = inner
+    if fmt.startswith("fastq"):
+        head, bases, sep, qual = raw.split(b"\n")[:4]
+        assert head == b"@S0_" + b"0" * len(str(n_reads(t) - 1))
+        assert sep == b"+" and qual == b"I" * len(bases) == b"I" * 150
+    else:
+        assert raw == open(plain["samples"][0]["path"], "rb").read()
+
+
+def test_unknown_format_is_refused_before_anything_is_written(
+        tiny_traffic, tmp_path):
+    _p, t = tiny_traffic
+    out = tmp_path / "bank"
+    for fmt in ("bam", "fasta.bz2", None):
+        with pytest.raises(ValueError, match="format"):
+            make_bank(dict(t, format=fmt), 3, str(out), workers=2)
+        assert not out.exists()
 
 
 def test_isolates_counts():

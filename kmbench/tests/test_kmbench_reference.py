@@ -9,7 +9,7 @@ import torch
 from kmbench.reference import layout, rows_differing
 from kmbench.reference.kmers import (
     Collection, key_minimizers, kx_tally, lpt_table, lpt_violations,
-    read_fasta, umod, window_minimizers, windows, xxh64_word)
+    read_reads, umod, window_minimizers, windows, xxh64_word)
 
 CODE = {"A": 0, "C": 1, "T": 2, "G": 3}
 COMP = {"A": "T", "T": "A", "C": "G", "G": "C"}
@@ -163,7 +163,44 @@ def test_read_fasta_refuses_multiline_records(tmp_path):
     p = tmp_path / "m.fasta"
     p.write_text(">a\nACGT\nACGT\n>b\nAC\n")
     with pytest.raises(ValueError):
-        read_fasta(str(p))
+        read_reads(str(p))
+
+
+@pytest.mark.parametrize("text", [
+    "@a\nACGT\n-\nIIII\n",             # separator not '+'
+    "@a\nACGT\n+\nIII\n",              # quality shorter than the bases
+    "@a\nACGT\n+\nIIIII\n",            # longer
+    "@a\nACGT\n+\nIIII\n@b\nAC\n+\n",  # a record cut short
+    "@a\nACGT\nACGT\n+\nIIIIIIII\n",    # two sequence lines
+])
+@pytest.mark.parametrize("gz", [False, True])
+def test_read_fastq_refuses_malformed_records(tmp_path, text, gz):
+    import gzip
+
+    p = tmp_path / "m.fastq"
+    data = text.encode()
+    p.write_bytes(gzip.compress(data) if gz else data)
+    with pytest.raises(ValueError):
+        read_reads(str(p))
+
+
+def test_read_fastq_and_gzip_as_fasta(tmp_path):
+    import gzip
+
+    reads = ["ACGTNACG", "TTGCA", "GGGGCCCCAAAATTTT"]
+    fa = "".join(f">r{i}\n{r}\n" for i, r in enumerate(reads))
+    fq = "".join(f"@r{i}\n{r}\n+r{i}\n{'@' * len(r)}\n"
+                 for i, r in enumerate(reads))
+    want_codes, want_lengths = read_reads(_fasta(tmp_path, reads))
+    assert want_lengths.tolist() == [8, 5, 16]
+    for name, data in [("a.fastq", fq.encode()),
+                       ("a.fasta.gz", gzip.compress(fa.encode())),
+                       ("a.fastq.gz", gzip.compress(fq.encode()))]:
+        p = tmp_path / name
+        p.write_bytes(data)
+        codes, lengths = read_reads(str(p))
+        assert torch.equal(codes, want_codes)
+        assert torch.equal(lengths, want_lengths)
 
 
 def test_rows_differing():
@@ -219,3 +256,86 @@ def test_a_run_refuses_a_configuration_it_cannot_judge(tiny_cell):
     with pytest.raises(ValueError, match="--soft-min"):
         run.run_cell(tiny_cell(args=("--max-memory", "1", "--soft-min", "3")),
                      2**31 + 5, 0.5, False, device="cpu")
+
+
+def _gatb_loop(path, threshold=50_000, chunk=256 * 1024):
+    """GATB's estimate as a loop: lines from chunks of the inflated stream,
+    records counted until one more than ``threshold`` is consumed, then
+    scaled by the file's size (four times where the path ends in its first
+    "gz") over the bytes fetched."""
+    import gzip
+    import os
+
+    gz = open(path, "rb").read(2) == b"\x1f\x8b"
+    f = gzip.open(path, "rb") if gz else open(path, "rb")
+    fetched, buf, lines_out = 0, b"", []
+
+    def lines():
+        nonlocal fetched, buf
+        while True:
+            while b"\n" in buf:
+                line, buf = buf.split(b"\n", 1)
+                yield line
+            c = f.read(chunk)
+            fetched += len(c)
+            if not c:
+                return
+            buf += c
+
+    def records(it):
+        first = next(it)
+        if first.startswith(b">"):
+            n = 0
+            for line in it:
+                if line.startswith(b">"):
+                    yield n
+                    n = 0
+                else:
+                    n += len(line)
+            yield n
+        else:
+            while True:
+                yield len(next(it))
+                next(it)
+                next(it)
+                try:
+                    next(it)
+                except StopIteration:
+                    return
+
+    number = total = 0
+    with f:
+        for n in records(lines()):
+            if number > threshold:
+                break
+            number += 1
+            total += n
+    size = os.path.getsize(path) * (4 if path.find("gz") == len(path) - 2
+                                    else 1)
+    ratio = np.float32(np.float32(size) / np.float32(fetched))
+    return number * size // fetched, int(np.float32(total) * ratio)
+
+
+@pytest.mark.parametrize("reads", [3, 50_001, 50_002, 50_003, 61_234])
+@pytest.mark.parametrize("name", ["s.fasta", "s.fastq", "s.fasta.gz",
+                                  "s.fastq.gz", "gz_s.fastq.gz"])
+def test_estimate_matches_the_gatb_loop(tmp_path, reads, name):
+    import gzip
+
+    from kmbench.reference.kmers import estimate, read_bytes
+
+    rng = np.random.default_rng(reads)
+    lens = rng.integers(20, 60, reads)
+    seqs = ["ACGT"[int(rng.integers(4))] * int(n) for n in lens]
+    if ".fastq" in name:
+        text = "".join(f"@r{i}\n{s}\n+\n{'I' * len(s)}\n"
+                       for i, s in enumerate(seqs))
+    else:
+        text = "".join(f">r{i}\n{s}\n" for i, s in enumerate(seqs))
+    data = text.encode()
+    p = tmp_path / name
+    p.write_bytes(gzip.compress(data) if name.endswith(".gz") else data)
+    got = estimate(read_bytes(str(p)), str(p))
+    assert got == _gatb_loop(str(p))
+    if reads <= 50_001 and not name.endswith(".gz"):
+        assert got == (reads, int(lens.sum()))

@@ -91,9 +91,16 @@ def test_traced_result_line(tiny_cell):
     assert r["correct"]
     assert {"busy_s", "window_s"} <= set(r["device"])
     assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
-    # on the CPU nothing runs on a device: the device metrics stay out
-    assert set(r["metrics"]) == {"repart.wall_s", "engine.chunk_loop_s",
-                                 "engine.tail_s"}
+    # BENCHMARK.json's per-layer metrics of the cell, less two that need a
+    # card: kernel.merge_roofline (no kernel runs on the CPU, so its reader
+    # finds no device time) and device.idle_share (the profiled run's
+    # device is busy 0 s on the CPU)
+    assert set(r["metrics"]) == {
+        "repart.wall_s", "repart.tally_wait_s", "repart.parse_s",
+        "repart.pack_s", "repart.upload_s", "engine.chunk_loop_s",
+        "engine.decode_wait_s", "engine.decode_s", "engine.chunk_step_s",
+        "engine.tail_s", "tail.fetch_s", "tail.merge_dense_s",
+        "tail.write_s"}
 
 
 def test_howde_line_leaves_out_the_rate(tiny_cell):
