@@ -494,8 +494,12 @@ def device_merge_write_partition(kmdir, config, opts, p: int, keys, pre,
     per-sample hard-min, count_max saturation, solid, rescue, keep and the
     statistics) runs on the device, and only the final counts, keep flags
     and statistics cross to the host for the writers. Inside ``tail.merge``
-    the span ``tail.merge.device`` holds the merge's launches; the copies
-    after it wait for the device."""
+    the span ``tail.merge.device`` holds the merge's launches and the span
+    ``tail.merge.copy`` (``n``: bytes) the copy of the counts and keep
+    flags, which first waits for the merge on the device. The counters
+    ``tail.merge.kept`` (rows kept), ``tail.merge.rescued`` and
+    ``tail.merge.final`` (cells rescued; cells solid or rescued) are read
+    from what is on the host."""
     from kmtricks_tpu_torch.runtime.pipeline import write_merge_outputs
 
     n = int(pre.shape[0])
@@ -504,11 +508,15 @@ def device_merge_write_partition(kmdir, config, opts, p: int, keys, pre,
             counts, keep, stats = merge_finalize(
                 pre, amin, hard_min, bounds, rmin=opts.recurrence_min,
                 save_if=opts.share_min, count_max=count_max, bits=False)
-        res = hops.MergeResult(
-            keys=keys, counts=_to_host(counts).view(np.uint32),
-            keep=_to_host(keep),
-            stats=hops.MergeStats(*stats[:, 0].cpu().numpy().astype(
-                np.uint64)))
+        with trace.span("tail.merge.copy", counts.numel() *
+                        counts.element_size() + keep.numel()):
+            host_counts, host_keep = _to_host(counts), _to_host(keep)
+        stats = hops.MergeStats(*stats[:, 0].cpu().numpy().astype(np.uint64))
+        res = hops.MergeResult(keys=keys, counts=host_counts.view(np.uint32),
+                               keep=host_keep, stats=stats)
+        trace.count("tail.merge.kept", np.count_nonzero(host_keep))
+        trace.count("tail.merge.rescued", stats.rescued.sum())
+        trace.count("tail.merge.final", stats.uniq_w_rescue.sum())
     with trace.span("tail.write", n):
         write_merge_outputs(kmdir, config, opts, p, res, pre.device)
 

@@ -76,6 +76,18 @@ def table_budget(max_memory_mb: int, layout: str, nsamp: int) -> int:
         max_memory_mb * 1e6 / 3 / (4 * (nw + 1))) + 1) // 2)
 
 
+def memory_for(entries: int, layout: str, nsamp: int) -> int:
+    """The least --max-memory (MB) at which :func:`table_budget` holds
+    ``entries``."""
+    if entries <= 1 << 25:          # the budget's floor
+        return 1
+    nw = _layout_words(layout, nsamp)
+    mb = -(-_pow2ceil(entries) * 12 * (nw + 1) // 10**6)
+    while table_budget(mb, layout, nsamp) < entries:
+        mb += 1
+    return mb
+
+
 def _exchanged(mesh) -> dict:
     """The totals of the mesh's run exchanges between processes so far
     (zeros for a mesh of one process)."""
@@ -181,7 +193,10 @@ def stage_mesh_stream(kmdir, config, opts, repart, amin_vec, *, mesh,
                 raise ValueError(
                     f"device table overflow ({cnt.shape[0]} entries > "
                     f"{table_cap} budget at --max-memory "
-                    f"{opts.max_memory_mb} MB)")
+                    f"{opts.max_memory_mb} MB): the budget holds them at "
+                    f"--max-memory "
+                    f"{memory_for(cnt.shape[0], layout, nsamp)} MB, and "
+                    f"the rest of the collection may need more")
             runs[d] = [(ws, cnt)]
             return 1
 

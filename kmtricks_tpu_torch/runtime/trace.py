@@ -2,7 +2,8 @@
 
 A span times one interval of the program on the host clock
 (``time.perf_counter``) and adds its seconds, one call and ``n`` units of
-work (rows, bytes, windows) to the run's record under its name. The
+work (rows, bytes, windows) to the run's record under its name; a
+counter (:func:`count`) adds one call and its units and no seconds. The
 record is one per process, shared by every thread (the prefetch,
 tally-producer and ``-t`` pool threads open spans too), and :func:`begin_run` / :func:`end_run` bracket it around one
 ``run_pipeline``: ``end_run`` freezes it as :data:`last_run`, a dict of
@@ -72,6 +73,12 @@ class span:
             self._rf = None
         _add(self.name, self.s, 1, int(self.n))
         return False
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` units of work and one call, and no seconds, to the run's
+    record under ``name``: a counter, read like a span's ``n``."""
+    _add(name, 0.0, 1, int(n))
 
 
 def begin_run() -> None:

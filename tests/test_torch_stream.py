@@ -271,6 +271,36 @@ def test_engine_table_overflow_raises(tmp_path):
             table_cap=3000)
 
 
+def test_engine_table_overflow_names_the_memory_that_holds_it(tmp_path):
+    """The refusal names the --max-memory at which ``table_budget`` holds
+    the entries that overflowed: the least such value past the budget's
+    floor of 2^25 entries (a 40-sample k3 table of 211M entries, as a
+    5x collection of 40 isolates gives, needs 12885 MB)."""
+    import re
+
+    from kmtricks_tpu_torch.ops.count_merge import stream_layout
+    from kmtricks_tpu_torch.runtime.stream_engine import (
+        memory_for, table_budget)
+
+    fof = write_fof(tmp_path / "c.fof")
+    with pytest.raises(ValueError, match="device table overflow") as err:
+        run_pipeline(PipelineOptions(
+            fof=fof, run_dir=str(tmp_path / "rd"), kmer_size=31,
+            nb_partitions=4, hist=True), device="cpu", chunk_windows=3000,
+            table_cap=3000)
+    got = re.search(r"\((\d+) entries > .* holds them at --max-memory "
+                    r"(\d+) MB", str(err.value))
+    assert got and int(got.group(2)) == memory_for(
+        int(got.group(1)), stream_layout(31, 4, 10, "kmer", 0), 10) == 1
+    layout = stream_layout(31, 4, 40, "kmer", 0)
+    assert table_budget(8192, layout, 40) < 211_000_000
+    for entries in (2**25 + 1, 134_217_729, 211_000_000, 2**30):
+        mb = memory_for(entries, layout, 40)
+        assert table_budget(mb, layout, 40) >= entries > table_budget(
+            mb - 1, layout, 40)
+    assert memory_for(211_000_000, layout, 40) == 12885
+
+
 def write_mixed_fof(tmp_path):
     """One long read among short ones: few bases, many padded windows."""
     rng = np.random.default_rng(3)

@@ -219,6 +219,43 @@ def test_host_merge_paths_record_no_device_merge(tmp_path, case,
         assert not seen and "tail.merge" not in rec
 
 
+@pytest.mark.parametrize("kw", [dict(max_memory_mb=1), dict()],
+                         ids=["engine", "one_step"])
+def test_merge_copy_span_and_counters_match_the_outputs(tmp_path, kw):
+    """With rescue on, each partition's ``tail.merge`` holds one
+    ``tail.merge.copy`` (its ``n`` the bytes of the final counts and keep
+    flags) and adds the rows it keeps and the cells it rescues and keeps
+    solid or rescued: the rows of the matrix files and the RESCUED and
+    UNIQUE_W_RESCUE lines of the merge_info files."""
+    import glob
+
+    from kmtricks_tpu_torch.io.formats import read_matrix_file
+
+    fof = write_fof(tmp_path / "c.fof")
+    run_pipeline(PipelineOptions(fof=fof, run_dir=str(tmp_path / "rd"),
+                                 kmer_size=31, nb_partitions=4, hard_min=1,
+                                 soft_min="2", share_min=1, **kw),
+                 device="cpu")
+    rec = trace.last_run
+    rows, nsamp = rec["tail.merge"]["n"], 10
+    assert rec["tail.merge.copy"]["calls"] == 4
+    assert rec["tail.merge.copy"]["n"] == rows * (4 * nsamp + 1)
+    assert rec["tail.merge.copy"]["s"] <= rec["tail.merge"]["s"]
+    for name in ("tail.merge.kept", "tail.merge.rescued",
+                 "tail.merge.final"):
+        assert rec[name]["calls"] == 4 and rec[name]["s"] == 0.0
+    stats = {}
+    for path in glob.glob(str(tmp_path / "rd" / "merge_infos" / "*")):
+        for line in open(path):
+            name, *vals = line.rstrip("\t\n").split("\t")
+            stats[name] = stats.get(name, 0) + sum(map(int, vals))
+    kept = sum(len(read_matrix_file(p)[1]) for p in glob.glob(
+        str(tmp_path / "rd" / "matrices" / "*.count")))
+    assert 0 < rec["tail.merge.kept"]["n"] == kept < rows
+    assert 0 < rec["tail.merge.rescued"]["n"] == stats["RESCUED"]
+    assert rec["tail.merge.final"]["n"] == stats["UNIQUE_W_RESCUE"]
+
+
 def test_record_function_only_under_a_profiler(counting_rf):
     trace.begin_run()
     with trace.span("quiet"):
