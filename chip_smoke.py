@@ -1014,11 +1014,13 @@ def tally_phase(fof_small, fof_e2e, dev, smi) -> dict:
     """Phase 11: the repartition tally on the card. Its bins against the
     host numpy tally's, bit for bit, on the phase-4 bank (k = 31, 21, 63)
     and on the 30x bank; the config + repartition wall of a run on the 30x
-    bank with each tally (device, host, device); one full tally block's
-    device time beside its bytes bound; peak device bytes."""
+    bank with each tally; one full tally block of raw bytes against the
+    host tally of its rows, and its device time beside its bytes bound;
+    peak device bytes."""
+    from kmtricks_tpu_torch.core.kmer import (
+        ASCII_CODE_TABLE, ASCII_VALID_TABLE)
     from kmtricks_tpu_torch.io import sequences as seqio
     from kmtricks_tpu_torch.ops import repart_sample as RS
-    from kmtricks_tpu_torch.ops.encode import pack_2bit_host
     from kmtricks_tpu_torch.runtime import pipeline as P
 
     bins = {}
@@ -1063,36 +1065,40 @@ def tally_phase(fof_small, fof_e2e, dev, smi) -> dict:
     if len(tables) != 1:
         raise AssertionError("the two tallies' repartitions differ")
     # one full block of the 30x bank (its first reads, as the sampler
-    # blocks them): device time against packed bases and validity bits
-    # read once and 4^m int64 bins written once
+    # blocks them: raw bytes, as wide as the longest read rounded up to 8):
+    # its bins against the host tally of the same rows, and its device
+    # time against the bytes read once and 4^m int64 bins written once
     m = config.minim_size
     batch, lengths = next(seqio.iter_batches(kmdir.fof.entries[0].paths))
-    L = -(-batch.shape[1] // 128) * 128
     B = P.REPART_BLOCK
-    while B > 128 and B * L > P.REPART_BLOCK * 512:
+    while B > 128 and B * P._read_width(lengths[:B]) > P.REPART_BLOCK * 512:
         B //= 2
-    blk = np.full((B, L), ord("N"), np.uint8)
-    lens = np.zeros(B, np.int32)
     n = min(B, len(lengths))
-    blk[:n, :batch.shape[1]] = batch[:n]
-    lens[:n] = lengths[:n]
-    packed, vbits = (torch.from_numpy(a).to(dev) for a in pack_2bit_host(blk))
-    lens_d = torch.from_numpy(lens).to(dev)
+    L = P._read_width(lengths[:n])
+    blk = np.full((n, L), ord("N"), np.uint8)
+    w = min(L, batch.shape[1])
+    blk[:, :w] = batch[:n, :w]
+    raw = torch.from_numpy(blk).to(dev)
+    lens_d = torch.from_numpy(lengths[:n]).to(dev)
     tbins = RS.make_bins(m, dev)
-    step = lambda: RS.tally_step(tbins, packed, vbits, lens_d, k=31,  # noqa
-                                 m=m)
+    step = lambda: RS.tally_step(tbins, raw, lens_d, k=31, m=m)  # noqa
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     step()
     torch.cuda.synchronize()
     block_peak = torch.cuda.max_memory_allocated() - base
+    flat = np.hstack([blk, np.full((n, 1), ord("N"), np.uint8)]).ravel()
+    host_block = np.zeros(4 ** m, np.int64)
+    P._tally_kxmer_starts(host_block, ASCII_CODE_TABLE[flat],
+                          ASCII_VALID_TABLE[flat], 31, m, None)
+    if not np.array_equal(tbins.cpu().numpy(), host_block):
+        raise AssertionError("the raw-byte block's tally differs")
     block_ms = device_ms(step)
-    block_bytes = (packed.numel() + vbits.numel() + lens_d.numel() * 4
-                   + 4 ** m * 8)
+    block_bytes = raw.numel() + lens_d.numel() * 4 + 4 ** m * 8
     res = {"phase": "repartition_tally", "bins_identical": bins,
            "e2e_config_repart_wall_s": walls,
-           "block": {"reads": n, "rows": B, "read_len_padded": L,
+           "block": {"reads": n, "rows": n, "read_width": L,
                      "k": 31, "minimizer_size": m,
                      "device_ms_3_repeats": block_ms,
                      "bound_ms": block_bytes / HBM_BYTES_PER_S * 1e3,

@@ -1,9 +1,8 @@
 """Encode: ASCII read batches -> canonical k-mers, minimizers, partitions.
 
 Counterpart of ``kmtricks_tpu/ops/encode.py`` (``encode_batch``,
-``encode_batch_wide``, ``device_key_words``, ``pack_2bit_host``,
-``unpack_2bit``), with the same semantics (byte-identical matrices follow
-from them):
+``encode_batch_wide``, ``device_key_words``), with the same semantics
+(byte-identical matrices follow from them):
 
 * codes via ``(ascii >> 1) & 3`` (A=0, C=1, T=2, G=3), valid iff in "ACGTacgt"
 * canonical k-mer = unsigned min(fwd, revcomp) of the 2-bit packing: ONE
@@ -22,7 +21,6 @@ and has no counterpart here.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from kmtricks_tpu_torch.ops.u64 import lt_words, s64, shr, shr_words, umin
@@ -39,35 +37,6 @@ def ascii_to_codes(batch: torch.Tensor):
     valid = torch.zeros(batch.shape, dtype=torch.bool, device=batch.device)
     for c in b"ACGTacgt":
         valid |= batch == c
-    return codes, valid
-
-
-def pack_2bit_host(batch: np.ndarray):
-    """(B, L) ASCII rows -> (packed (B, L/4) u8, vbits (B, L/8) u8) on the
-    host (copy of the JAX package's ``pack_2bit_host``): the code of
-    position p in bits [2 (p % 4), 2 (p % 4) + 2) of packed[:, p // 4], its
-    validity in bit p % 8 of vbits[:, p // 8]. L must be a multiple of 8."""
-    B, L = batch.shape
-    assert L % 8 == 0
-    codes = ((batch >> 1) & 3).astype(np.uint8)
-    packed = (codes[:, 0::4] | (codes[:, 1::4] << 2)
-              | (codes[:, 2::4] << 4) | (codes[:, 3::4] << 6))
-    valid = ((batch == 65) | (batch == 67) | (batch == 71) | (batch == 84)
-             | (batch == 97) | (batch == 99) | (batch == 103)
-             | (batch == 116))
-    vbits = np.packbits(valid, axis=1, bitorder="little")
-    return packed, vbits
-
-
-def unpack_2bit(packed: torch.Tensor, vbits: torch.Tensor):
-    """Device twin of :func:`pack_2bit_host`: (B, L/4) and (B, L/8) uint8
-    -> (codes (B, L) int64, valid (B, L) bool)."""
-    B = packed.shape[0]
-    p = packed.to(torch.int64)
-    codes = torch.stack([(p >> (2 * j)) & 3 for j in range(4)],
-                        dim=2).reshape(B, -1)
-    valid = torch.stack([(vbits >> j) & 1 for j in range(8)],
-                        dim=2).reshape(B, -1).to(torch.bool)
     return codes, valid
 
 

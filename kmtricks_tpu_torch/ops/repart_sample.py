@@ -8,7 +8,8 @@ per minimizer to weight the LPT bin packing
 consecutive valid k-mer windows sharing a minimizer), a new kx-mer starts
 when the canonical strand flips or every 4th k-mer of a same-strand run.
 
-Read blocks arrive 2-bit packed (``ops/encode.py::pack_2bit_host``); every
+Read blocks arrive as raw ASCII bytes in the reads' own width and are
+encoded on their device (``ops/encode.py::ascii_to_codes``); every
 per-window quantity (minimizer, strand, run break, kx start) is a (B, W)
 tensor pass with its scans along the contiguous dim 1 (a scan down the
 rows of a narrow matrix runs one CUDA thread per column); one
@@ -23,8 +24,8 @@ from __future__ import annotations
 import torch
 
 from kmtricks_tpu_torch.ops.encode import (
-    _roll_in, _window_validity, device_key_words, forward_words,
-    masked_mmers, revcomp64, revcomp_words, sliding_min, unpack_2bit)
+    _roll_in, _window_validity, ascii_to_codes, device_key_words,
+    forward_words, masked_mmers, revcomp64, revcomp_words, sliding_min)
 from kmtricks_tpu_torch.ops.u64 import lt_words, ult
 
 
@@ -74,16 +75,18 @@ def _after_first(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(x, (1, 0))
 
 
-def tally_step(bins: torch.Tensor, packed: torch.Tensor, vbits: torch.Tensor,
+def tally_step(bins: torch.Tensor, block: torch.Tensor,
                lengths: torch.Tensor, *, k: int, m: int,
                freq_table=None) -> torch.Tensor:
     """Add one read block's kx-mer-start tally to ``bins`` in place.
 
-    bins (4^m,) int64 on the block's device; packed (B, L/4) and vbits
-    (B, L/8) uint8 (``pack_2bit_host``); lengths (B,) int32 (padding rows
-    0); freq_table (4^m,) int64 ranks under --minimizer-type 1, else
-    None. Returns ``bins``."""
-    codes, char_valid = unpack_2bit(packed, vbits)
+    bins (4^m,) int64 on the block's device; block (B, L) uint8 ASCII
+    rows, any L (bytes past a row's length are ignored); lengths (B,)
+    int32 (padding rows 0); freq_table (4^m,) int64 ranks under
+    --minimizer-type 1, else None. Returns ``bins``."""
+    if block.shape[1] < k:      # no row holds a window
+        return bins
+    codes, char_valid = ascii_to_codes(block)
     wv = _window_validity(char_valid, lengths, k)                  # (B, W)
     del char_valid
     minim = _window_minimizer_values(codes, k, m, freq_table)

@@ -229,27 +229,77 @@ def _sample_batches(kmdir: KmDir, config: Config, bam_filter):
 
 
 # reads per block of the device tally; a block holds at most 512 times as
-# many cells (reads x padded length): rows halve as the width bucket
-# grows, so a long-read bank never forces a REPART_BLOCK x max_len block
-# (the JAX package's CELL_BUDGET)
+# many cells (reads x width): rows halve as the width grows, so a
+# long-read bank never forces a REPART_BLOCK x max_len block (the JAX
+# package's CELL_BUDGET)
 REPART_BLOCK = 65536
+# host buffers the producer fills blocks into, in turn
+REPART_RING = 4
+
+
+def _read_width(lengths: np.ndarray) -> int:
+    """The longest of ``lengths`` rounded up to 8: a tally block's width."""
+    return -(-int(lengths.max(initial=0)) // 8) * 8
+
+
+class _BlockRing:
+    """The producer's host buffers: ``REPART_RING`` slots of block bytes
+    and lengths, page-locked on a CUDA device and reused in turn. A slot
+    is refilled only after the event recorded on its last host-to-device
+    copy has completed; on another device the upload copies the block
+    (``clone``), so the slot is free at once."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pin = device.type == "cuda"
+        self.slots: list = [None] * REPART_RING
+        self.taken = 0
+
+    def take(self, B: int, L: int):
+        """The next slot in turn once its last copy has ended, grown to
+        hold a (B, L) block: (slot, block (B, L) uint8, lengths (B,)
+        int32), the last two numpy views to fill."""
+        s = self.taken % len(self.slots)
+        self.taken += 1
+        slot = self.slots[s]
+        if slot is not None and slot[2] is not None:
+            slot[2].synchronize()
+        if slot is None or slot[0].numel() < B * L or slot[1].numel() < B:
+            slot = [torch.empty(B * L, dtype=torch.uint8, pin_memory=self.pin),
+                    torch.empty(B, dtype=torch.int32, pin_memory=self.pin),
+                    None]
+            self.slots[s] = slot
+        return (slot, slot[0].numpy()[:B * L].reshape(B, L),
+                slot[1].numpy()[:B])
+
+    def upload(self, slot, B: int, L: int):
+        """The slot's (B, L) block and (B,) lengths on the device."""
+        blk, lens = slot[0][:B * L].view(B, L), slot[1][:B]
+        if not self.pin:
+            return blk.clone(), lens.clone()
+        out = (blk.to(self.device, non_blocking=True),
+               lens.to(self.device, non_blocking=True))
+        slot[2] = torch.cuda.Event()
+        slot[2].record(torch.cuda.current_stream(self.device))
+        return out
 
 
 def _sample_minimizer_bins_device(kmdir: KmDir, config: Config, device,
                                   bam_filter=None,
                                   freq_order=None) -> np.ndarray:
     """Device SampleRepart (counterpart of the JAX package's
-    ``_sample_minimizer_bins_device``): the first-N sampled reads are
-    gathered into quantized (B, L) blocks on a producer thread, packed to
-    2 bits a base (``pack_2bit_host``) and uploaded (pinned,
-    ``non_blocking``); each block's tally (``ops/repart_sample.py::
-    tally_step``) adds into a (4^m,) int64 table that stays on
-    ``device`` until the end. Bit-equal to the host tally."""
+    ``_sample_minimizer_bins_device``): a producer thread gathers the
+    first-N sampled reads into (B, L) blocks of raw ASCII bytes, B the
+    rows gathered and L the longest read rounded up to 8, filled into a
+    ring of page-locked buffers (:class:`_BlockRing`) and uploaded
+    ``non_blocking``; each block's tally (``ops/repart_sample.py::
+    tally_step``, which encodes the bytes on the device) adds into a
+    (4^m,) int64 table that stays on ``device`` until the end. Bit-equal
+    to the host tally."""
     import queue as queue_mod
     import threading
 
     from kmtricks_tpu_torch.ops import repart_sample as rs
-    from kmtricks_tpu_torch.ops.encode import pack_2bit_host
 
     k, m = config.kmer_size, config.minim_size
     device = torch.device(device)
@@ -257,21 +307,13 @@ def _sample_minimizer_bins_device(kmdir: KmDir, config: Config, device,
     freq = (None if freq_order is None else torch.from_numpy(
         np.asarray(freq_order, np.int64)).to(device))
 
-    def bucket_len(maxlen: int) -> int:
-        return max(((maxlen + 127) // 128) * 128, 128)
-
     def cap_rows(L: int) -> int:
         B = block
         while B > 128 and B * L > block * 512:
             B //= 2
         return B
 
-    def upload(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
-
+    ring = _BlockRing(device)
     q: queue_mod.Queue = queue_mod.Queue(maxsize=2)
     stop = threading.Event()
 
@@ -284,33 +326,29 @@ def _sample_minimizer_bins_device(kmdir: KmDir, config: Config, device,
             except queue_mod.Full:
                 continue
 
-    def emit(pieces, nrows, L):
-        """The buffered ``nrows`` reads as one padded (B, L) block: B is
-        the width bucket's cap, or for a last, partial block the power of
-        two that holds its rows (eager torch compiles nothing per shape,
-        so the JAX package's full-cap padding would only add work).
-        Zero-length all-'N' rows tally nothing."""
-        with trace.span("repart.pack") as pack:
-            B = min(cap_rows(L), 1 << max(7, (nrows - 1).bit_length()))
-            blk = np.full((B, L), ord("N"), np.uint8)
-            lens = np.zeros(B, np.int32)
+    def emit(pieces, nrows):
+        """The buffered ``nrows`` reads as one block: (nrows, L), L the
+        longest of them rounded up to 8, each row 'N' past its read.
+        Eager torch compiles nothing per shape, so neither rows nor width
+        are padded further."""
+        L = max(_read_width(lengths) for _, lengths in pieces)
+        slot, blk, lens = ring.take(nrows, L)
+        with trace.span("repart.pack", blk.nbytes):
             r = 0
             for batch, lengths in pieces:
-                n = len(lengths)
-                w = min(batch.shape[1], L)
+                n, w = len(lengths), min(batch.shape[1], L)
                 blk[r:r + n, :w] = batch[:, :w]
+                blk[r:r + n, w:] = ord("N")
                 lens[r:r + n] = lengths
                 r += n
-            packed, vbits = pack_2bit_host(blk)
-            pack.n = blk.nbytes
-        with trace.span("repart.upload",
-                        packed.nbytes + vbits.nbytes + lens.nbytes):
-            item = (upload(packed), upload(vbits), upload(lens))
+        trace.count("repart.bases", int(lens.sum()))
+        with trace.span("repart.upload", blk.nbytes + lens.nbytes):
+            item = ring.upload(slot, nrows, L)
         put(item)
 
     def producer():
         try:
-            pieces, nrows, L = [], 0, 128
+            pieces, nrows, L = [], 0, 0
             batches = _sample_batches(kmdir, config, bam_filter)
             while True:
                 with trace.span("repart.parse") as parse:
@@ -320,15 +358,14 @@ def _sample_minimizer_bins_device(kmdir: KmDir, config: Config, device,
                 if got is None:
                     break
                 batch, lengths = got
-                bL = bucket_len(batch.shape[1])
                 while len(lengths):
-                    newL = max(L, bL)
+                    newL = max(L, _read_width(lengths))
                     cap = cap_rows(newL)
                     if nrows >= cap:
                         # widening would overflow this block: flush it at
                         # the current (narrower) width and start again
-                        emit(pieces, nrows, L)
-                        pieces, nrows, L = [], 0, 128
+                        emit(pieces, nrows)
+                        pieces, nrows, L = [], 0, 0
                         continue
                     take = min(len(lengths), cap - nrows)
                     pieces.append((batch[:take], lengths[:take]))
@@ -336,10 +373,10 @@ def _sample_minimizer_bins_device(kmdir: KmDir, config: Config, device,
                     nrows += take
                     L = newL
                     if nrows >= cap_rows(L):
-                        emit(pieces, nrows, L)
-                        pieces, nrows, L = [], 0, 128
+                        emit(pieces, nrows)
+                        pieces, nrows, L = [], 0, 0
             if nrows:
-                emit(pieces, nrows, L)
+                emit(pieces, nrows)
         except BaseException as e:  # noqa: BLE001 - raised by the consumer
             put(e)
             return
@@ -356,10 +393,9 @@ def _sample_minimizer_bins_device(kmdir: KmDir, config: Config, device,
                 break
             if isinstance(item, BaseException):
                 raise item
-            packed, vbits, lens = item
+            blk, lens = item
             with trace.span("repart.tally_step", int(lens.shape[0])):
-                rs.tally_step(bins, packed, vbits, lens, k=k, m=m,
-                              freq_table=freq)
+                rs.tally_step(bins, blk, lens, k=k, m=m, freq_table=freq)
     finally:
         stop.set()
     t.join()

@@ -15,11 +15,12 @@ import torch
 
 from kmtricks_tpu.core.repartition import Repartition as JaxRepartition
 from kmtricks_tpu.ops import repart_sample as jrs
+from kmtricks_tpu.ops.encode import pack_2bit_host
 from kmtricks_tpu.ops import xxh64 as jxx
 from kmtricks_tpu.runtime import pipeline as JP
+from kmtricks_tpu_torch.core.kmer import ASCII_CODE_TABLE, ASCII_VALID_TABLE
 from kmtricks_tpu_torch.core.repartition import Repartition
 from kmtricks_tpu_torch.ops import repart_sample as rs
-from kmtricks_tpu_torch.ops.encode import pack_2bit_host
 from kmtricks_tpu_torch.ops.xxh64 import static_partitions, xxh64_u32
 from kmtricks_tpu_torch.runtime import pipeline as P
 
@@ -48,9 +49,10 @@ def fake_run(tmp_path, reads, k, m):
     return kmdir, config
 
 
-def one_block(reads):
-    """All reads as one 'N'-padded (B, L) block, L a multiple of 128."""
-    L = max(128, -(-max(len(r) for r in reads) // 128) * 128)
+def one_block(reads, width=128):
+    """All reads as one 'N'-padded (B, L) block, L the longest read
+    rounded up to a multiple of ``width`` (at least ``width``)."""
+    L = max(width, -(-max(len(r) for r in reads) // width) * width)
     batch = np.full((len(reads), L), ord("N"), np.uint8)
     for i, r in enumerate(reads):
         batch[i, :len(r)] = np.frombuffer(r, np.uint8)
@@ -58,9 +60,22 @@ def one_block(reads):
     return batch, lengths
 
 
-def tally_both(reads, k, m, freq=None):
-    """One block through the JAX package's tally_step ((L, B) layout) and
-    the port's ((B, L)); returns both (4^m,) tallies as int64."""
+def host_tally(batch, k, m, freq=None):
+    """The host numpy tally of one block, rows cut by an 'N' column, as
+    ``sample_minimizer_bins`` tallies a parsed batch."""
+    flat = np.hstack([batch, np.full((len(batch), 1), ord("N"),
+                                     np.uint8)]).ravel()
+    bins = np.zeros(4 ** m, np.int64)
+    P._tally_kxmer_starts(bins, ASCII_CODE_TABLE[flat],
+                          ASCII_VALID_TABLE[flat], k, m, freq)
+    return bins
+
+
+def tally_both(reads, k, m, freq=None, width=8):
+    """One block through the JAX package's tally_step ((L, B) layout, 2-bit
+    packed by its ``pack_2bit_host``, L a multiple of 128) and the port's
+    (raw bytes (B, L), L the longest read rounded up to ``width``); returns
+    both (4^m,) tallies as int64."""
     batch, lengths = one_block(reads)
     packed, vbits = pack_2bit_host(batch)
     use_freq = freq is not None
@@ -70,9 +85,10 @@ def tally_both(reads, k, m, freq=None):
                          jnp.asarray(vbits.T.copy()), jnp.asarray(lengths),
                          jnp.asarray(fj), k=k, m=m, L=batch.shape[1],
                          use_freq=use_freq)
+    raw, _ = one_block(reads, width)
     got = rs.tally_step(
-        rs.make_bins(m, "cpu"), torch.from_numpy(packed),
-        torch.from_numpy(vbits), torch.from_numpy(lengths), k=k, m=m,
+        rs.make_bins(m, "cpu"), torch.from_numpy(raw),
+        torch.from_numpy(lengths), k=k, m=m,
         freq_table=None if freq is None else torch.from_numpy(
             np.asarray(freq, np.int64)))
     return got.numpy(), np.asarray(exp).astype(np.int64)
@@ -130,22 +146,100 @@ def test_tally_freq_order(tmp_path):
     assert not np.array_equal(host, P.sample_minimizer_bins(kmdir, config))
 
 
-def test_tally_multi_block_variable_lengths(tmp_path, monkeypatch):
-    """Blocks of 128 reads whose width bucket changes between them, so
-    blocks flush at different (B, L) shapes and split batches."""
+def odd_reads(rng, k):
+    """Reads of widths that are multiples of neither 8 nor 128 (150, 151,
+    37, 1, k - 1, and random ones), with lowercase bases, 'N' runs and
+    bytes other than ACGTN."""
+    lens = [150, 151, 37, 1, k - 1, 150, 151] + list(
+        rng.integers(1, 3 * k, 40))
+    other = np.frombuffer(b"RYKMSWBDHVUn-.*acgtZz", np.uint8)
+    reads = []
+    for ln in lens:
+        s = rng.choice(np.frombuffer(b"ACGTacgt", np.uint8), size=ln)
+        s[rng.random(ln) < 0.03] = ord("N")
+        if ln > 20:
+            at = int(rng.integers(0, ln - 8))
+            s[at:at + int(rng.integers(1, 8))] = ord("N")
+        hit = rng.random(ln) < 0.02
+        s[hit] = rng.choice(other, size=int(hit.sum()))
+        reads.append(bytes(s))
+    return reads
+
+
+@pytest.mark.parametrize("width", [1, 8], ids=["exact", "round8"])
+@pytest.mark.parametrize("k,m", [(17, 6), (31, 10), (32, 6), (45, 6)])
+def test_tally_raw_bytes_odd_widths(tmp_path, k, m, width):
+    """The tally of raw bytes in a block as wide as its longest read
+    (``exact``) or rounded up to 8 (the producer's width) against the
+    JAX package's tally of the 2-bit packed, 128-wide block and the host
+    numpy tally; then through the samplers from a FASTA file."""
+    rng = np.random.default_rng(k * 10 + width)
+    reads = odd_reads(rng, k)
+    got, exp = tally_both(reads, k, m, width=width)
+    np.testing.assert_array_equal(got, exp)
+    np.testing.assert_array_equal(got, host_tally(one_block(reads)[0], k,
+                                                  m))
+    assert got.sum() > 0
+    kmdir, config = fake_run(tmp_path, reads, k, m)
+    np.testing.assert_array_equal(
+        P.sample_minimizer_bins(kmdir, config, device="cpu"),
+        P.sample_minimizer_bins(kmdir, config))
+
+
+def test_tally_block_narrower_than_k_adds_nothing():
+    """A block whose longest read is under k holds no window."""
+    k, m = 31, 6
+    batch, lengths = one_block([b"ACGT" * 7, b"A"], width=8)   # L = 32 > 28
+    bins = rs.make_bins(m, "cpu")
+    rs.tally_step(bins, torch.from_numpy(batch[:, :28].copy()),
+                  torch.from_numpy(lengths), k=k, m=m)
+    assert int(bins.sum()) == 0
+
+
+@pytest.mark.parametrize("block", [128, 512])
+def test_tally_multi_block_variable_lengths(tmp_path, monkeypatch, block):
+    """Blocks whose width changes between them, so blocks flush at
+    different (B, L) shapes and split batches, through more blocks than
+    the producer's ring has buffers. Each block is the rows gathered,
+    as wide as its longest read rounded up to 8, and ``cap_rows`` bounds
+    B x L (rows halve as the width grows past 512 reads' budget)."""
     k, m = 31, 6
     rng = np.random.default_rng(7)
-    reads = (random_reads(rng, 150, 40, 100) + random_reads(rng, 3, 700, 900)
-             + random_reads(rng, 150, 40, 100)
+    reads = (random_reads(rng, 700, 40, 100) + random_reads(rng, 3, 700, 900)
+             + random_reads(rng, 600, 40, 151)
              + random_reads(rng, 2, 1200, 1500)
-             + random_reads(rng, 100, 40, 100))
+             + random_reads(rng, 400, 40, 100))
     reads = [reads[i] for i in rng.permutation(len(reads))]
     kmdir, config = fake_run(tmp_path, reads, k, m)
     host = P.sample_minimizer_bins(kmdir, config)
-    monkeypatch.setattr(P, "REPART_BLOCK", 128)
+    monkeypatch.setattr(P, "REPART_BLOCK", block)
+    shapes = []
+    step = rs.tally_step
+
+    def recording(bins, blk, lens, **kw):
+        longest = int(lens.max())
+        shapes.append((blk.shape, longest))
+        assert blk.dtype == torch.uint8 and lens.shape == blk.shape[:1]
+        assert blk.shape[1] == -(-longest // 8) * 8
+        assert (blk.numpy()[np.arange(blk.shape[1])[None, :]
+                            >= lens.numpy()[:, None]] == ord("N")).all()
+        return step(bins, blk, lens, **kw)
+
+    monkeypatch.setattr(rs, "tally_step", recording)
     got = P.sample_minimizer_bins(kmdir, config, device="cpu")
     np.testing.assert_array_equal(got, host)
     assert host.sum() > 0
+    assert len(shapes) > P.REPART_RING
+    assert sum(s[0][0] for s in shapes) == len(reads)
+    assert len({s[0][1] for s in shapes}) >= 3
+    for (B, L), _ in shapes:
+        cap = block
+        while cap > 128 and cap * L > block * 512:
+            cap //= 2
+        assert B <= cap
+        assert B * L <= block * 512 or B <= 128
+    if block == 512:
+        assert min(s[0][0] for s in shapes[:-1]) < block   # halved
 
 
 @pytest.mark.parametrize("sampler", ["host", "device"])

@@ -120,7 +120,7 @@ RUNS = {
 }
 REPART = ("repart.parse", "repart.pack", "repart.upload",
           "repart.tally_wait", "repart.tally_step", "repart.place",
-          "repart.write")
+          "repart.write", "repart.bases")
 
 
 @pytest.mark.parametrize("case", sorted(RUNS))
@@ -152,7 +152,9 @@ def test_pipeline_spans_match_the_run(tmp_path, case, counting_rf, caplog):
     assert rec["tail.merge.device"]["s"] <= rec["tail.merge"]["s"]
     assert rec["tail.fetch"]["n"] > 0
     assert rec["repart.tally_step"]["calls"] == \
-        rec["repart.upload"]["calls"] == rec["repart.pack"]["calls"]
+        rec["repart.upload"]["calls"] == rec["repart.pack"]["calls"] == \
+        rec["repart.bases"]["calls"]
+    assert rec["repart.bases"]["s"] == 0
     # one wait per block, and one for the end of the stream
     assert rec["repart.tally_wait"]["calls"] == \
         rec["repart.tally_step"]["calls"] + 1
@@ -217,6 +219,42 @@ def test_host_merge_paths_record_no_device_merge(tmp_path, case,
         assert rec["tail.merge"]["n"] > 0
     else:
         assert not seen and "tail.merge" not in rec
+
+
+def test_repart_blocks_pad_150bp_reads_by_under_6_percent(tmp_path,
+                                                          monkeypatch):
+    """On 150 bp reads each block's ``repart.pack`` bytes (B x L, as
+    uploaded) over its ``repart.bases`` (the reads' bases) read 152/150:
+    the block is as wide as its longest read rounded up to 8. One
+    ``repart.pack``, ``repart.upload``, ``repart.tally_step`` and
+    ``repart.bases`` a block, one more ``repart.tally_wait``."""
+    import types
+
+    import numpy as np
+
+    from kmtricks_tpu_torch.runtime import pipeline as P
+
+    rng = np.random.default_rng(18)
+    reads = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=(3000, 150))
+    fasta = tmp_path / "r.fasta"
+    fasta.write_text("".join(f">r{i}\n{r.tobytes().decode()}\n"
+                             for i, r in enumerate(reads)))
+    kmdir = types.SimpleNamespace(fof=[types.SimpleNamespace(
+        paths=[str(fasta)])])
+    config = types.SimpleNamespace(kmer_size=31, minim_size=8,
+                                   seq_number=len(reads))
+    monkeypatch.setattr(P, "REPART_BLOCK", 512)
+    trace.begin_run()
+    P.sample_minimizer_bins(kmdir, config, device="cpu")
+    rec = trace.end_run()
+    blocks = rec["repart.tally_step"]["calls"]
+    assert blocks == -(-len(reads) // 512)
+    for name in ("repart.pack", "repart.upload", "repart.bases"):
+        assert rec[name]["calls"] == blocks, name
+    assert rec["repart.tally_wait"]["calls"] == blocks + 1
+    assert rec["repart.bases"]["n"] == reads.size
+    assert rec["repart.pack"]["n"] == len(reads) * 152
+    assert rec["repart.pack"]["n"] / rec["repart.bases"]["n"] < 1.06
 
 
 @pytest.mark.parametrize("kw", [dict(max_memory_mb=1), dict()],
